@@ -6,8 +6,8 @@
 Phases, each of which fails the run (non-zero exit) on any error:
 
 1. Card and build: the card's name and power limit, then the build of every
-   CUDA source of the port (nvcc for sm_90a), with its seconds and ptxas'
-   register and spill report.
+   CUDA source of the port (nvcc for sm_90a, flash_fwd.cu and flash_bwd.cu
+   in parallel), with its seconds and ptxas' register and spill report.
 2. Kernel against its plain version: the flash-attention forward kernel
    (csrc/flash_fwd.cu) and ``flash_fwd_plain`` on the same card tensors, at
    bf16 and f32, over the serving path's prefill shape, the flagship's
@@ -23,12 +23,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (the prefill). The prefill's last-position logits are held against the
    plain attention path, and a small model's logits on the card against the
    CPU.
+2b. Backward kernels against their plain version: the dK/dV and dQ kernels
+   (csrc/flash_bwd.cu) and ``flash_bwd_plain`` on the same card tensors with
+   a random dO, at bf16 and f32, over the flagship's training shape, a
+   non-causal case, a ragged length, Sq < Sk, GQA and head_dim 64; errors
+   relative to each gradient's largest magnitude, each kernel's time, the
+   plain version's, the bound and, as a yardstick only, the backward of
+   scaled_dot_product_attention.
 4. Long prefill: batch 2 at S = 2048 (max_seq) through the kernel, against
    the plain path.
+5. Training at full width: the flagship (bench.py's bench_lm configuration,
+   remat on) takes 2 warm-up and 5 timed steps of ``make_lm_train_step`` on
+   a fixed batch of 8 x 2048 tokens. Each step must launch the forward
+   kernel 2 x n_layers times (forward and remat recompute) and each backward
+   kernel n_layers times, with finite metrics and a falling loss; the first
+   step is held against the plain attention path. Step time, tokens/s, MFU,
+   peak memory and the flash kernels' share of the step's device time.
+6. A small f32 model takes one training step on the card (the kernels) and
+   one on the CPU (the plain versions): loss, grad_norm and every updated
+   parameter agree.
 
 The line before the last is a JSON object with one entry per kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA card the script
-exits non-zero and prints no result.
+line is ``{"ok": true, "device": {...}}`` with the one card the run used.
+Without a CUDA card the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -60,6 +77,20 @@ TOL = {torch.bfloat16: {"out": 2e-2, "lse": 1e-3},
 LOGIT_TOL_BF16 = 0.25
 # A small f32 model, card (kernel, cuBLAS) against CPU (plain path).
 LOGIT_TOL_F32 = 1e-3
+# Backward kernels against their plain version on the same card tensors, on
+# the largest error of dq, dk and dv relative to that gradient's largest
+# magnitude (bf16 gradients at S 2048 are far from 1). bf16: P and dS are
+# rounded to bf16 in both versions, from f32 values summed in another order,
+# and the outputs are rounded to bf16 (2^-8 of their size). f32: the order
+# of the f32 sums.
+BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# First training step of the flagship, kernel path against the plain
+# attention path, both at bf16: the loss (~ln 32768 = 10.4 at random
+# weights) is a mean over 16k tokens, so the per-logit drift of a few bf16
+# ulps averages out to well under 1e-2; the gradient norm sums bf16 products
+# of every layer, 2% relative.
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GNORM_RTOL = 2e-2
 
 
 def check(cond, msg):
@@ -82,21 +113,47 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, sq, sk, h, kvh, d, causal, dtype):
-    """Least milliseconds for the forward: each input byte read once, each
-    output byte written once; operations 4*D per visible (q, k) pair."""
-    es = torch.empty((), dtype=dtype).element_size()
-    if causal:
-        rows = np.arange(sq) + (sk - sq) + 1
-        pairs = int(np.clip(rows, 0, sk).sum())
-    else:
-        pairs = sq * sk
-    flops = 4.0 * b * h * d * pairs
-    nbytes = (2 * b * sq * h * d + 2 * b * sk * kvh * d) * es + b * h * sq * 4
+def _visible_pairs(sq, sk, causal):
+    """(q, k) pairs the mask leaves, the diagonal offset by sk - sq."""
+    if not causal:
+        return sq * sk
+    rows = np.arange(sq) + (sk - sq) + 1
+    return int(np.clip(rows, 0, sk).sum())
+
+
+def _bound(flops, nbytes, dtype):
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(b, sq, sk, h, kvh, d, causal, dtype):
+    """Least milliseconds for the forward: each input byte read once, each
+    output byte written once; operations 4*D per visible (q, k) pair."""
+    es = torch.empty((), dtype=dtype).element_size()
+    flops = 4.0 * b * h * d * _visible_pairs(sq, sk, causal)
+    nbytes = (2 * b * sq * h * d + 2 * b * sk * kvh * d) * es + b * h * sq * 4
+    return _bound(flops, nbytes, dtype)
+
+
+def backward_bound(b, sq, sk, h, kvh, d, causal, dtype, part="all"):
+    """Least milliseconds for the backward, or for one of its kernels.
+
+    all: q, k, v, o, dO and LSE in, dq, dk, dv out; 10*D operations per
+    visible pair (Q K^T, dV, dP, dK, dQ). dkv: q, k, v, dO, LSE and Delta
+    in, dk, dv out; 8*D (Q K^T, dV, dP, dK). dq: the same in, dq out; 6*D
+    (Q K^T, dP, dQ)."""
+    es = torch.empty((), dtype=dtype).element_size()
+    q_elems, kv_elems, stats = b * sq * h * d, b * sk * kvh * d, b * h * sq
+    ops_per_d, ins, outs = {
+        "all": (10, 3 * q_elems + 2 * kv_elems, q_elems + 2 * kv_elems),
+        "dkv": (8, 2 * q_elems + 2 * kv_elems, 2 * kv_elems),
+        "dq": (6, 2 * q_elems + 2 * kv_elems, q_elems),
+    }[part]
+    flops = ops_per_d * b * h * d * _visible_pairs(sq, sk, causal)
+    nbytes = (ins + outs) * es + stats * 4 * (1 if part == "all" else 2)
+    return _bound(flops, nbytes, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,9 +174,10 @@ def phase_card_and_build():
     _build.build_all()
     print(f"[build] seconds={time.perf_counter() - t0:.1f} (nvcc for every "
           f"stale source, in parallel) into {_build.BUILD_DIR}", flush=True)
-    for line in _build.build_log("flash_fwd").splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"[build] {line.strip()}")
+    for name in ("flash_fwd", "flash_bwd"):
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"[build] {name}: {line.strip()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[setup] torch.backends.cuda.matmul.allow_tf32=False, "
@@ -202,6 +260,114 @@ def phase_kernel_checks():
 
 
 # ---------------------------------------------------------------------------
+# phase 2b
+# ---------------------------------------------------------------------------
+
+# name, (b, sq, sk, h, kvh, d), causal
+BWD_CASES = [
+    ("train_causal", (8, 2048, 2048, 16, 16, 128), True),
+    ("full", (2, 2048, 2048, 16, 16, 128), False),
+    ("ragged", (2, 1000, 1000, 16, 16, 128), True),
+    ("sq_lt_sk", (2, 300, 1000, 16, 16, 128), True),
+    ("gqa", (2, 512, 512, 16, 4, 128), True),
+    ("head_dim_64", (2, 777, 777, 8, 8, 64), True),
+]
+
+
+def _library_bwd_ms(q, k, v, do, causal):
+    """scaled_dot_product_attention's backward alone: its forward plus
+    backward, less its forward (both recorded under autograd)."""
+    import torch.nn.functional as F
+    sq, sk = q.shape[1], k.shape[1]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    kw = {"enable_gqa": k.shape[2] != q.shape[2]}
+    if causal and sq != sk:
+        kw["attn_mask"] = torch.ones(sq, sk, dtype=torch.bool,
+                                     device=q.device).tril(sk - sq)
+    else:
+        kw["is_causal"] = causal
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    return cuda_ms(fwd_bwd) - cuda_ms(fwd)
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def phase_backward_checks():
+    from ray_tpu_torch.ops import flash
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    results = {}
+    for name, (b, sq, sk, h, kvh, d), causal in BWD_CASES:
+        q0 = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+        k0 = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
+        v0 = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
+        do0 = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (x.to(dtype) for x in (q0, k0, v0, do0))
+            scale = d ** -0.5
+            with torch.inference_mode():
+                out, lse = flash.flash_fwd(q, k, v, causal=causal)
+                got = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+                torch.cuda.synchronize()
+                want = flash.flash_bwd_plain(q, k, v, out, lse, do,
+                                             causal=causal)
+                rel = [_rel_err(g, w) for g, w in zip(got, want)]
+                abs_err = [(g.float() - w.float()).abs().max().item()
+                           for g, w in zip(got, want)]
+                check(all(torch.isfinite(g).all().item() for g in got),
+                      f"{name}: non-finite gradient")
+                args = (q, k, v, do, lse, flash.bwd_delta(out, do),
+                        *(torch.empty_like(g) for g in got), causal, scale)
+                dkv_ms = cuda_ms(lambda: flash.bwd_dkv(*args))
+                dq_ms = cuda_ms(lambda: flash.bwd_dq(*args))
+                wrapper_ms = cuda_ms(lambda: flash.flash_bwd(
+                    q, k, v, out, lse, do, causal=causal))
+                plain_ms = cuda_ms(lambda: flash.flash_bwd_plain(
+                    q, k, v, out, lse, do, causal=causal), iters=3, warmup=1)
+                del want, got
+            lib_ms = _library_bwd_ms(q, k, v, do, causal)
+            shape = (b, sq, sk, h, kvh, d, causal, dtype)
+            bound_ms, bound_by = backward_bound(*shape)
+            dkv_bound = backward_bound(*shape, part="dkv")
+            dq_bound = backward_bound(*shape, part="dq")
+            kernel_ms = dkv_ms + dq_ms
+            tol = BWD_TOL[dtype]
+            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            print(f"[backward] {name} {tag} b={b} sq={sq} sk={sk} h={h} "
+                  f"kvh={kvh} d={d} causal={causal}: max_rel_err "
+                  f"dq={rel[0]:.3e} dk={rel[1]:.3e} dv={rel[2]:.3e} "
+                  f"(tol {tol:.0e}; max_abs_err dq={abs_err[0]:.3e} "
+                  f"dk={abs_err[1]:.3e} dv={abs_err[2]:.3e}) "
+                  f"kernel_ms dkv={dkv_ms:.4f} dq={dq_ms:.4f} "
+                  f"sum={kernel_ms:.4f} wrapper_ms={wrapper_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                  f"({bound_by}; dkv {dkv_bound[0]:.4f}, dq "
+                  f"{dq_bound[0]:.4f}) library_ms={lib_ms:.4f} "
+                  f"bound/kernel={bound_ms / kernel_ms:.3f}", flush=True)
+            check(max(rel) <= tol,
+                  f"{name} {tag}: backward kernels disagree with their "
+                  f"plain version")
+            results[(name, tag)] = dict(
+                rel=rel, abs=abs_err, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                dkv_bound=dkv_bound, dq_bound=dq_bound, library_ms=lib_ms,
+                shape=[b, sq, sk, h, kvh, d])
+        del q0, k0, v0, do0
+        torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------------------
 # phases 3 and 4
 # ---------------------------------------------------------------------------
 
@@ -272,6 +438,14 @@ def phase_serving(card):
     return launches, batch * new / seconds
 
 
+def _device_kernels(prof):
+    """The kernels of a torch.profiler trace: device events, less the
+    ranges that annotate the device timeline (``Optimizer.step#...``)."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def _serving_breakdown(params, prompt, cfg, max_len, steps=16):
     """Where a request's time goes: prefill against decode steps (host clock
     around work that ends in a synchronize), and the card's busy share over
@@ -307,8 +481,7 @@ def _serving_breakdown(params, prompt, cfg, max_len, steps=16):
             t0 = time.perf_counter()
             run(steps)
             wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = _device_kernels(prof)
     print(f"[serve] prefill {prefill_ms:.2f} ms (batch {prompt.shape[0]} x "
           f"{prompt.shape[1]}), decode {step_ms:.3f} ms/step "
           f"({prompt.shape[0] / step_ms * 1e3:.1f} tokens/s in steady "
@@ -388,6 +561,173 @@ def phase_long_prefill():
     check(diff <= LOGIT_TOL_BF16, "long prefill: kernel path disagrees")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6
+# ---------------------------------------------------------------------------
+
+def _launch_counts():
+    from ray_tpu_torch.ops import flash
+    return (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches)
+
+
+def _reset_launch_counts():
+    from ray_tpu_torch.ops import flash
+    flash.launches = flash.bwd_dkv_launches = flash.bwd_dq_launches = 0
+
+
+def _first_step(cfg, tokens, seed):
+    """Loss and grad_norm of one training step from seeded weights."""
+    from ray_tpu_torch.train import make_lm_train_step
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    _, metrics = step_fn(state, place({"tokens": tokens}))
+    return metrics["loss"].item(), metrics["grad_norm"].item()
+
+
+def phase_training(card):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import transformer_num_params
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = flagship_cfg(remat=True)     # bench.py:134-137, attn_impl auto
+    batch, seq, seed = 8, cfg.max_seq, 3
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size,
+                                               (batch, seq))
+    n_params = transformer_num_params(cfg)
+    L = cfg.n_layers
+    per_step = (2 * L, L, L)   # forward + remat recompute, dK/dV, dQ
+
+    plain = _first_step(dataclasses.replace(cfg, attn_impl="reference"),
+                        tokens, seed)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    data = place({"tokens": tokens})
+    print(f"[train] flagship params={n_params} batch={batch} seq={seq} "
+          f"remat={cfg.remat} attn_impl={cfg.attn_impl}", flush=True)
+    losses, gnorms = [], []
+    for _ in range(2):                  # warm-up, counted step by step
+        _reset_launch_counts()
+        state, metrics = step_fn(state, data)
+        losses.append(metrics["loss"].item())
+        gnorms.append(metrics["grad_norm"].item())
+        check(_launch_counts() == per_step,
+              f"a training step launched {_launch_counts()}, want "
+              f"{per_step} (forward, dK/dV, dQ)")
+    check(abs(losses[0] - plain[0]) <= TRAIN_LOSS_TOL
+          and abs(gnorms[0] - plain[1]) <= TRAIN_GNORM_RTOL * plain[1],
+          f"first step: kernel path loss {losses[0]}, grad_norm "
+          f"{gnorms[0]}; plain path {plain}")
+    print(f"[train] first step kernel path vs plain attention path: loss "
+          f"{losses[0]:.6f} vs {plain[0]:.6f} (diff "
+          f"{abs(losses[0] - plain[0]):.3e}, tol {TRAIN_LOSS_TOL}), "
+          f"grad_norm {gnorms[0]:.6f} vs {plain[1]:.6f} (rel diff "
+          f"{abs(gnorms[0] - plain[1]) / plain[1]:.3e}, tol "
+          f"{TRAIN_GNORM_RTOL})", flush=True)
+
+    steps = 5
+    _reset_launch_counts()
+    timed = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, data)
+        timed.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(launches == tuple(steps * n for n in per_step),
+          f"{steps} training steps launched {launches}")
+    losses += [m["loss"].item() for m in timed]
+    gnorms += [m["grad_norm"].item() for m in timed]
+    check(all(np.isfinite(losses)) and all(np.isfinite(gnorms)),
+          f"non-finite metrics: loss {losses}, grad_norm {gnorms}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    step_ms = seconds / steps * 1e3
+    tokens_per_s = batch * seq * steps / seconds
+    flops_per_token = 6 * n_params + 12 * L * cfg.d_model * seq
+    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[train] losses {[round(x, 4) for x in losses]} grad_norms "
+          f"{[round(x, 4) for x in gnorms]}", flush=True)
+    print(f"[train] {steps} timed steps: {step_ms:.1f} ms/step, "
+          f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} (6N + 12LdS = "
+          f"{flops_per_token:.4e} flop/token against 989 TFLOP/s), peak "
+          f"memory {peak_gb:.2f} GB, launches (fwd, dkv, dq) {launches} on "
+          f"{card}", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, data)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = _device_kernels(prof)
+    if not kernels:
+        print("[train] device time breakdown: not measured (the profiler "
+              "recorded no device events)", flush=True)
+    else:
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us())
+        busy = sum(by_name.values())
+        flash_us = {n: us for n, us in by_name.items() if "flash_" in n}
+        print(f"[train] profiled step: wall {wall_us / 1e3:.1f} ms, device "
+              f"time {busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}, "
+              f"{len(kernels)} kernels); flash kernels "
+              f"{sum(flash_us.values()) / 1e3:.2f} ms = "
+              f"{sum(flash_us.values()) / busy:.4f} of device time",
+              flush=True)
+        for n, us in sorted(flash_us.items(), key=lambda kv: -kv[1]):
+            print(f"[train]   flash {us / 1e3:.3f} ms  {n[:90]}")
+        for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"[train]   top {us / 1e3:.3f} ms  {n[:90]}")
+    del state
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms, tokens_per_s=tokens_per_s,
+                mfu=mfu, peak_gb=peak_gb)
+
+
+def phase_small_training():
+    """One f32 training step on the card (kernels) against the CPU (plain)."""
+    from ray_tpu_torch.models import TransformerConfig, transformer_init
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=2, n_kv_heads=1, max_seq=256,
+                            dtype=torch.float32, attn_impl="flash")
+    cpu_params = transformer_init(torch.Generator().manual_seed(4), cfg,
+                                  device="cpu")
+    card_params = _to_card(cpu_params)
+    batch = {"tokens": np.random.default_rng(4).integers(0, 512, (2, 200))}
+    results = []
+    for params, device in ((cpu_params, "cpu"), (card_params, None)):
+        init_fn, step_fn, place = make_lm_train_step(cfg, device=device)
+        state, metrics = step_fn(init_fn(params), place(batch))
+        results.append((state.params, metrics))
+    (want, wm), (got, gm) = results
+    diffs = {k: abs(gm[k].item() - wm[k].item())
+             for k in ("loss", "grad_norm")}
+
+    def leaves(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from leaves(v, f"{prefix}{k}.")
+            else:
+                yield f"{prefix}{k}", v
+
+    cpu_leaves = dict(leaves(want))
+    param_diff = max((v.detach().cpu() - cpu_leaves[k].detach()).abs().max()
+                     .item() for k, v in leaves(got))
+    print(f"[reference] small f32 model (GQA 2:1, head_dim 128, S 200) one "
+          f"training step card vs CPU: loss diff {diffs['loss']:.3e}, "
+          f"grad_norm diff {diffs['grad_norm']:.3e}, updated params max "
+          f"diff {param_diff:.3e} (tol {LOGIT_TOL_F32})", flush=True)
+    check(max(*diffs.values(), param_diff) <= LOGIT_TOL_F32,
+          "training step: card disagrees with the CPU reference")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on an NVIDIA card",
@@ -395,33 +735,74 @@ def main() -> int:
         return 1
     card = phase_card_and_build()
     results = phase_kernel_checks()
-    launches, _ = phase_serving(card)
+    bwd = phase_backward_checks()
+    serve_launches, _ = phase_serving(card)
     phase_small_reference()
     phase_long_prefill()
-    main_shape = results[("serve_prefill", "bf16")]
+    train = phase_training(card)
+    phase_small_training()
+    fwd_main = results[("serve_prefill", "bf16")]
+    train_fwd = results[("max_seq_causal", "bf16")]
+    bwd_main = bwd[("train_causal", "bf16")]
+    launches = train["launches"]
+    source = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash.py:45",
-        "launches": launches,
-        "max_abs_err": main_shape["max_abs_err"],
+        "launches": serve_launches + launches[0],
+        "launches_by_path": {"serve": serve_launches, "train": launches[0]},
+        "max_abs_err": fwd_main["max_abs_err"],
         "tol": TOL[torch.bfloat16]["out"],
         "cases_passed": len(results),
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": main_shape["library_ms"],
-        "shape": main_shape["shape"],
+        "ms": fwd_main["ms"],
+        "plain_ms": fwd_main["plain_ms"],
+        "bound_ms": fwd_main["bound_ms"],
+        "bound_by": fwd_main["bound_by"],
+        "library_ms": fwd_main["library_ms"],
+        "shape": fwd_main["shape"],
+        "train_shape": {k: train_fwd[k] for k in
+                        ("ms", "plain_ms", "bound_ms", "library_ms",
+                         "shape")},
         "dtype": "bfloat16",
         "card": card,
     }]
+    for name, line, part, launched, errs in (
+            ("flash_bwd_dkv", 134, "dkv", launches[1], bwd_main["rel"][1:]),
+            ("flash_bwd_dq", 176, "dq", launches[2], bwd_main["rel"][:1])):
+        absolute = (bwd_main["abs"][1:] if part == "dkv"
+                    else bwd_main["abs"][:1])
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": f"ray_tpu/ops/flash.py:{line}",
+            "launches": launched,
+            "launches_by_path": {"train": launched},
+            "max_abs_err": max(absolute),
+            "max_rel_err": max(errs),
+            "tol": BWD_TOL[torch.bfloat16],
+            "tol_on": "max_rel_err, relative to the gradient's max magnitude",
+            "cases_passed": len(bwd),
+            "ms": bwd_main[f"{part}_ms"],
+            "plain_ms": bwd_main["plain_ms"],
+            "plain_computes": "dq, dk and dv together",
+            "bound_ms": bwd_main[f"{part}_bound"][0],
+            "bound_by": bwd_main[f"{part}_bound"][1],
+            "library_ms": bwd_main["library_ms"],
+            "library_computes": "scaled_dot_product_attention backward "
+                                "(dq, dk and dv)",
+            "shape": bwd_main["shape"],
+            "dtype": "bfloat16",
+            "card": card,
+        })
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     from ray_tpu_torch import device_name
+    # the run used one card, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name(0), "count": 1}}))
     return 0
 
 

@@ -26,7 +26,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.transformer import (TransformerConfig, _head,
                                               _layer_apply, _mlp, _rmsnorm,
                                               _rope, check_device,
-                                              layer_params)
+                                              unstack_layers)
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -94,10 +94,9 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len: int,
     positions = torch.arange(s, device=dev).expand(b, s)
     x = params["embed"].to(cfg.dtype)[tokens]
     cache = init_cache(cfg, b, max_len, device=dev)
-    for i in range(cfg.n_layers):
+    for i, layer in enumerate(unstack_layers(params)):
         # return_kv hands back the layer's already-computed rotated K/V
-        x, (k, v) = _layer_apply(cfg, layer_params(params, i), x, positions,
-                                 return_kv=True)
+        x, (k, v) = _layer_apply(cfg, layer, x, positions, return_kv=True)
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     logits = _head(cfg, params, x[:, -1:])
@@ -111,9 +110,8 @@ def decode_step(params, token, pos: int, cache, cfg: TransformerConfig,
     dev = resolve_device(device)
     check_device(params, dev)
     x = params["embed"].to(cfg.dtype)[token.to(dev)][:, None, :]  # [B,1,E]
-    for i in range(cfg.n_layers):
-        x = _decode_layer(cfg, layer_params(params, i), cache["k"][i],
-                          cache["v"][i], x, pos)
+    for i, layer in enumerate(unstack_layers(params)):
+        x = _decode_layer(cfg, layer, cache["k"][i], cache["v"][i], x, pos)
     logits = _head(cfg, params, x)
     return logits[:, 0], cache
 

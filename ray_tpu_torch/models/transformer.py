@@ -4,20 +4,22 @@
 Parameters are a plain dict of tensors with the JAX pytree's keys and its
 stacked-layer layout (``wq [L, d, h, hd]``, ``wo [L, h, hd, d]``, ...), so
 each function here reads against its JAX counterpart. The ``lax.scan`` over
-stacked layers is a Python loop over layer ``i``. Compute dtype bfloat16,
-params float32, logits float32.
+stacked layers is a Python loop over the layers, and ``jax.checkpoint``
+(``cfg.remat``) is ``torch.utils.checkpoint``. Compute dtype bfloat16, params
+float32, logits float32.
 
-Not in this slice (ROADMAP.md): MoE layers, ring/Ulysses attention, pipeline
-stages and remat (a training concern).
+Not ported yet (ROADMAP.md): MoE layers, ring/Ulysses attention, pipeline
+stages (``pp_stages``, ``num_microbatches``) and ``transformer_logical_axes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import mha
@@ -37,6 +39,7 @@ class TransformerConfig:
     param_dtype: Any = torch.float32
     attn_impl: str = "auto"               # auto|reference|blockwise|flash
     causal: bool = True                   # False: bidirectional
+    remat: bool = True                    # recompute layers in the backward
     num_experts: int = 0                  # MoE: a later slice
     tied_embeddings: bool = False
 
@@ -103,13 +106,18 @@ def transformer_init(generator: torch.Generator, cfg: TransformerConfig,
     return params
 
 
-def layer_params(params, i: int) -> Dict[str, Any]:
-    """Layer ``i`` of the stacked tree (views, no copy)."""
-    def take(tree):
+def unstack_layers(params) -> List[Dict[str, Any]]:
+    """The stacked layer tree as one dict per layer, by ``unbind``: views, no
+    copy. Under autograd each leaf's backward stacks the L layer gradients
+    once; indexing layer ``i`` would instead add a full-size zero gradient
+    per layer."""
+    def split(tree):
         if isinstance(tree, dict):
-            return {k: take(v) for k, v in tree.items()}
-        return tree[i]
-    return take(params["layers"])
+            parts = {k: split(v) for k, v in tree.items()}
+            return [{k: parts[k][i] for k in parts}
+                    for i in range(len(next(iter(parts.values()))))]
+        return tree.unbind(0)
+    return split(params["layers"])
 
 
 def check_device(params, dev: torch.device) -> None:
@@ -173,6 +181,21 @@ def _layer_apply(cfg: TransformerConfig, layer, x, positions,
     return x + y
 
 
+def _stage_apply(cfg: TransformerConfig, layers, x, positions):
+    """Apply the layers in order (the JAX version's ``lax.scan``). With
+    ``cfg.remat`` and grad enabled each layer runs under
+    ``torch.utils.checkpoint`` (``jax.checkpoint``): only its input is kept,
+    and its forward runs again in the backward."""
+    remat = cfg.remat and torch.is_grad_enabled()
+    for layer in layers:
+        if remat:
+            x = checkpoint(_layer_apply, cfg, layer, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_apply(cfg, layer, x, positions)
+    return x
+
+
 def _head(cfg: TransformerConfig, params, x):
     x = _rmsnorm(x, params["final_norm"])
     head = params["embed"].T if cfg.tied_embeddings else params["lm_head"]
@@ -190,9 +213,25 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *,
     if positions is None:
         positions = torch.arange(s, device=dev).expand(b, s)
     x = params["embed"].to(cfg.dtype)[tokens]
-    for i in range(cfg.n_layers):
-        x = _layer_apply(cfg, layer_params(params, i), x, positions)
+    x = _stage_apply(cfg, unstack_layers(params), x, positions)
     return _head(cfg, params, x)
+
+
+def transformer_loss(params, batch, cfg: TransformerConfig, *, device=None):
+    """batch: {"tokens": [B, S]} next-token cross-entropy on f32 logits, the
+    mean over non-final positions; with ``batch["mask"]`` ([B, S]) the mean
+    over the masked-in targets, ``(nll * mask[:, 1:]).sum() /
+    max(mask[:, 1:].sum(), 1)``."""
+    tokens = batch["tokens"]
+    logits = transformer_apply(params, tokens, cfg, device=device)
+    targets = tokens.to(logits.device)[:, 1:].long()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask.to(logits.device)[:, 1:]
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()
 
 
 def transformer_num_params(cfg: TransformerConfig) -> int:

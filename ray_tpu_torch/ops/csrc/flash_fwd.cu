@@ -31,13 +31,11 @@
 // bytes); GQA maps query head h to kv head h / (H / KVH). Any Sq and Sk: the
 // ragged tails are masked. head_dim 64 or 128.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
+using namespace rtt;
 
 enum : int {
   kErrBadDtype = -1,
@@ -57,41 +55,6 @@ struct Params {
   float scale;
   int causal;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\n" ::);
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Copy rows [row0, row0 + ROWS) of one head into shared memory (row pitch
-// PITCH elements), 16 bytes a thread per step; rows past `rows` are zeroed.
-template <typename T, int ROWS, int D, int PITCH, int THREADS>
-__device__ __forceinline__ void load_tile(T* smem, const T* base,
-                                          int64_t row_stride, int row0,
-                                          int rows) {
-  constexpr int kPer16 = 16 / sizeof(T);
-  constexpr int kChunksPerRow = D / kPer16;
-  constexpr int kChunks = ROWS * kChunksPerRow;
-  static_assert(kChunks % THREADS == 0, "tile must split evenly");
-#pragma unroll
-  for (int i = 0; i < kChunks / THREADS; ++i) {
-    int c = threadIdx.x + i * THREADS;
-    int r = c / kChunksPerRow;
-    int col = (c % kChunksPerRow) * kPer16;
-    T* dst = smem + r * PITCH + col;
-    if (row0 + r < rows) {
-      cp_async16(dst, base + (row0 + r) * row_stride + col);
-    } else {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-    }
-  }
-}
 
 // Number of kv tiles a q tile must visit: all of them, or, under the causal
 // mask, only those not wholly above the diagonal of its last row.
@@ -116,39 +79,6 @@ __device__ __forceinline__ bool masked(const Params& p, int qi, int kj) {
 constexpr int kBlockM = 64;  // q rows per CTA, 16 per warp
 constexpr int kBlockN = 64;  // kv rows per tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4],
-                                            const void* smem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* smem) {
-  uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Fragment layout of m16n8k16 (g = lane / 4, t = lane % 4): an accumulator
 // tile holds rows g (elements 0, 1) and g + 8 (elements 2, 3) at columns
@@ -263,23 +193,7 @@ __global__ void __launch_bounds__(kThreads)
 
     // O += P V: P (cast to bf16) is reused from the accumulator registers as
     // the A operand; V tiles come transposed out of shared memory.
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t pf[4];
-      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        uint32_t vf[4];
-        int row = kk * 16 + ((lane / 8) % 2) * 8 + lane % 8;
-        int col = dp * 16 + (lane / 16) * 8;
-        ldmatrix_x4_trans(vf, s_v + row * kPitch + col);
-        mma_16816(acc[2 * dp], pf, vf[0], vf[1]);
-        mma_16816(acc[2 * dp + 1], pf, vf[2], vf[3]);
-      }
-    }
+    mma_acc_b<D, kBlockN, kPitch>(acc, s, s_v, lane);
     __syncthreads();  // the next tile overwrites s_qk and s_v
   }
 

@@ -1,16 +1,23 @@
-"""Flash-attention forward: a hand-written Hopper kernel and its plain version.
+"""Flash attention, forward and backward: hand-written Hopper kernels and
+their plain versions.
 
-Ported from ``ray_tpu/ops/flash.py``: ``_fwd_kernel`` / ``_flash_fwd``
-(the Pallas FlashAttention-2 forward) becomes ``csrc/flash_fwd.cu``, built
-for ``sm_90a`` by ``ops/_build.py`` and launched by ``flash_fwd`` below.
-``flash_attention_plain`` is the same function in plain PyTorch; the wrapper
-takes it only for tensors on the CPU. For a CUDA tensor it launches the
-kernel or raises.
+Ported from ``ray_tpu/ops/flash.py``:
 
-The TPU's block-shape tables and autotuner (``_GEN_BLOCKS``, ``_fit_block``,
-``autotune_blocks``) are not ported: the kernel's tile shapes are its own
-constants. The backward kernels belong to the training slice (ROADMAP.md);
-until then a CUDA call on tensors that require grad raises.
+- ``_fwd_kernel`` / ``_flash_fwd`` (the Pallas FlashAttention-2 forward)
+  becomes ``csrc/flash_fwd.cu``, launched by ``flash_fwd``; its plain
+  version is ``flash_attention_plain``.
+- ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` / ``_flash_bwd`` become the two
+  kernels of ``csrc/flash_bwd.cu``, launched by ``flash_bwd``; the plain
+  version is ``flash_attention_bwd_plain``.
+- The ``jax.custom_vjp`` around them becomes ``_FlashAttention``, a
+  ``torch.autograd.Function`` that ``flash_attention`` goes through whenever
+  an input needs a gradient.
+
+Each wrapper takes its plain version only for tensors on the CPU; for CUDA
+tensors it launches its kernels (built for ``sm_90a`` by ``ops/_build.py``)
+or raises. The TPU's block-shape tables and autotuner (``_GEN_BLOCKS``,
+``_fit_block``, ``autotune_blocks``) are not ported: the kernels' tile shapes
+are their own constants.
 """
 
 from __future__ import annotations
@@ -23,8 +30,11 @@ import torch
 from ray_tpu_torch._device import require_sm90
 from ray_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 
-# Launches of the CUDA kernel since the last reset (callers set it to 0).
+# Launches of each CUDA kernel since the last reset (callers set them to 0):
+# the forward, and the backward's dK/dV and dQ kernels.
 launches = 0
+bwd_dkv_launches = 0
+bwd_dq_launches = 0
 
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,11 +81,79 @@ def flash_fwd_plain(q, k, v, *, causal: bool = True,
             lse.reshape(b, h, sq))
 
 
+def _bwd_plain_f32(q, k, v, out, lse, do, causal: bool, scale: float):
+    """``flash_attention_bwd_plain`` before its final cast: f32 (dq, dk, dv)."""
+    sq, sk = q.shape[1], k.shape[1]
+    s = torch.matmul(q.float(), k.float().transpose(1, 2)) * scale
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool,
+                          device=q.device).tril(sk - sq)
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    do32 = do.float()
+    dv = torch.matmul(p.to(do.dtype).float().transpose(1, 2), do32)
+    dp = torch.matmul(do32, v.float().transpose(1, 2))
+    delta = (do32 * out.float()).sum(-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    return (torch.matmul(ds, k.float()), torch.matmul(ds.transpose(1, 2),
+                                                      q.float()), dv)
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, causal: bool,
+                              scale: float):
+    """Plain PyTorch version of ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel``:
+    q, out, do [BH, Sq, D], k/v [BH, Sk, D], lse [BH, Sq] f32 -> (dq, dk, dv)
+    in the inputs' dtypes.
+
+    As ``_flash_bwd``: Δ = rowsum(f32(dO) ⊙ f32(O)); P = exp(scale·QKᵀ,
+    causal-masked to NEG_INF with the diagonal offset by ``sk - sq``, − LSE);
+    dV = Pᵀ dO with P cast to dO's dtype; dP = dO Vᵀ; dS = P ⊙ (dP − Δ) ·
+    scale cast to the input dtype; dK = dSᵀ Q and dQ = dS K, every product
+    accumulated in f32.
+    """
+    dq, dk, dv = _bwd_plain_f32(q, k, v, out, lse, do, causal, scale)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_bwd_plain(q, k, v, out, lse, do, *, causal: bool = True,
+                    scale: Optional[float] = None):
+    """BSHD form of ``flash_attention_bwd_plain``: q, out, do [B, Sq, H, D],
+    k/v [B, Sk, KVH, D], lse [B, H, Sq] f32 -> (dq [B, Sq, H, D],
+    dk/dv [B, Sk, KVH, D]). Under GQA the dK and dV of a kv head are the sum
+    over its query heads, taken in f32 and rounded once, as the kernel does."""
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    kr, vr = _repeat_kv(k, v, h)
+    scale = scale if scale is not None else d ** -0.5
+
+    def to_bh(x, s):
+        return x.transpose(1, 2).reshape(b * h, s, d)
+
+    dq, dk, dv = _bwd_plain_f32(to_bh(q, sq), to_bh(kr, sk), to_bh(vr, sk),
+                                to_bh(out, sq), lse.reshape(b * h, sq),
+                                to_bh(do, sq), causal, scale)
+
+    def kv_heads(x):   # [B*H, Sk, D] -> [B, Sk, KVH, D], summed per group
+        x = x.reshape(b, hk, h // hk, sk, d).sum(2)
+        return x.transpose(1, 2).to(k.dtype)
+
+    return (dq.reshape(b, h, sq, d).transpose(1, 2).to(q.dtype),
+            kv_heads(dk), kv_heads(dv))
+
+
+def _needs_grad(*xs):
+    return torch.is_grad_enabled() and any(x.requires_grad for x in xs)
+
+
 def flash_fwd(q, k, v, *, causal: bool = True,
               scale: Optional[float] = None):
     """q [B, Sq, H, D], k/v [B, Sk, KVH, D] -> (out [B, Sq, H, D],
     lse [B, H, Sq] f32). CPU tensors take the plain version; CUDA tensors
-    launch ``csrc/flash_fwd.cu``."""
+    launch ``csrc/flash_fwd.cu``. It records no gradient: ``flash_attention``
+    is the differentiable entry."""
+    if _needs_grad(q, k, v):
+        raise ValueError("flash_fwd records no gradient; call "
+                         "flash_attention, whose backward runs flash_bwd")
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, causal=causal, scale=scale)
     if not q.is_cuda:
@@ -83,9 +161,54 @@ def flash_fwd(q, k, v, *, causal: bool = True,
     return _flash_fwd_cuda(q, k, v, causal, scale)
 
 
+def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True,
+              scale: Optional[float] = None):
+    """Gradients of ``flash_fwd``'s out: q, out, do [B, Sq, H, D], k/v
+    [B, Sk, KVH, D], lse [B, H, Sq] f32 (the forward's) -> (dq
+    [B, Sq, H, D], dk/dv [B, Sk, KVH, D]). CPU tensors take the plain
+    version; CUDA tensors launch the two kernels of ``csrc/flash_bwd.cu``.
+
+    Causal attention with Sq > Sk is refused: its first rows see no key, the
+    forward gives them O = 0 and LSE ≈ NEG_INF, and exp(s − LSE) would give
+    P = 1 there, which is not the forward's gradient (the TPU backward has
+    the same fault, ROADMAP.md D)."""
+    if causal and q.shape[1] > k.shape[1]:
+        raise ValueError(f"the causal backward takes Sq <= Sk, not "
+                         f"Sq {q.shape[1]} > Sk {k.shape[1]}")
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, causal=causal,
+                               scale=scale)
+    if not q.is_cuda:
+        raise ValueError(f"flash_bwd takes CPU or CUDA tensors, not {q.device}")
+    return _flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the ``jax.custom_vjp`` ``_flash_bhsd``: the forward
+    saves (q, k, v, out, lse), the backward is ``flash_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, causal=ctx.causal,
+                               scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
-    """Fused attention; q,k,v: [B, S, H, D] -> [B, Sq, H, D]."""
+    """Fused attention; q,k,v: [B, S, H, D] -> [B, Sq, H, D]. Differentiable:
+    when an input needs a gradient the call goes through ``_FlashAttention``,
+    whose backward is ``flash_bwd``."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, scale)
     return flash_fwd(q, k, v, causal=causal, scale=scale)[0]
 
 
@@ -106,11 +229,6 @@ def _check_inputs(q, k, v):
                          f"q, k and v, not {q.dtype}, {k.dtype}, {v.dtype}")
     if not (k.device == q.device == v.device):
         raise ValueError("q, k and v must lie on one device")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the flash backward kernels come with the training slice "
-            "(ROADMAP.md); run serving under torch.inference_mode()")
     if sq == 0 or sk == 0 or b * h == 0:
         raise ValueError("flash_fwd takes non-empty sequences")
 
@@ -123,40 +241,58 @@ def _vector_ready(x):
             and all(s % per16 == 0 for s in x.stride()[:-1]))
 
 
-_lib = None
+_libs = {}
 
 
-def _kernel_library():
-    """``csrc/flash_fwd.cu``, built at first use, with its C signature."""
-    global _lib
-    if _lib is None:
+def _kernel_library(name: str):
+    """``csrc/<name>.cu`` (flash_fwd or flash_bwd), built at first use, with
+    its C signature."""
+    lib = _libs.get(name)
+    if lib is None:
         from ray_tpu_torch.ops._build import load_library
-        lib = load_library("flash_fwd")
+        lib = load_library(name)
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.rtt_flash_fwd.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 12
-                                      + [ctypes.c_float, i32, i32, ptr])
-        lib.rtt_flash_fwd.restype = i32
-        lib.rtt_error_string.argtypes = [i32]
-        lib.rtt_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        if name == "flash_fwd":
+            fn, err = lib.rtt_flash_fwd, lib.rtt_error_string
+            fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 12
+                           + [ctypes.c_float, i32, i32, ptr])
+        else:
+            fn, err = lib.rtt_flash_bwd, lib.rtt_flash_bwd_error_string
+            fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
+                           + [ctypes.c_float, i32, i32, ptr])
+        fn.restype = i32
+        err.argtypes = [i32]
+        err.restype = ctypes.c_char_p
+        lib.error_string = err
+        _libs[name] = lib
+    return lib
+
+
+def _raise_on(lib, err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           f"{lib.error_string(err).decode()} (code {err})")
+
+
+def _aligned(*xs):
+    """The tensors as given, or a fresh copy of one whose strides break
+    16-byte loads (a fresh allocation is contiguous and aligned;
+    ``contiguous()`` may return a misaligned view unchanged)."""
+    return tuple(x if _vector_ready(x) else
+                 x.clone(memory_format=torch.contiguous_format) for x in xs)
 
 
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: Optional[float]):
     global launches
     _check_inputs(q, k, v)
     require_sm90(q.device)
-    # a fresh allocation is contiguous and aligned (contiguous() may return
-    # a misaligned view unchanged)
-    q, k, v = (x if _vector_ready(x) else
-               x.clone(memory_format=torch.contiguous_format)
-               for x in (q, k, v))
+    q, k, v = _aligned(q, k, v)
     b, sq, h, d = q.shape
     sk, hk = k.shape[1], k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty(b, sq, h, d, dtype=q.dtype, device=q.device)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
-    lib = _kernel_library()
+    lib = _kernel_library("flash_fwd")
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.rtt_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -164,9 +300,71 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: Optional[float]):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *out.stride()[:3], scale, int(causal), _DTYPE_CODES[q.dtype],
         stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: "
-                           f"{lib.rtt_error_string(err).decode()} "
-                           f"(code {err})")
+    _raise_on(lib, err, "flash_fwd")
     launches += 1
     return out, lse
+
+
+def bwd_delta(out, do):
+    """Δ = rowsum(f32(dO) ⊙ f32(O)) as [B, H, Sq] f32, a torch reduction
+    outside the kernels, as the JAX package takes it outside Pallas."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool,
+                    scale: Optional[float]):
+    _check_inputs(q, k, v)
+    require_sm90(q.device)
+    b, sq, h, d = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and do {tuple(do.shape)} "
+                         f"must have q's shape {tuple(q.shape)}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"out and do must be {q.dtype}, not {out.dtype}, "
+                         f"{do.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be [B, H, Sq] f32, not "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not (out.device == do.device == lse.device == q.device):
+        raise ValueError("all inputs must lie on one device")
+    delta = bwd_delta(out, do)
+    q, k, v, do = _aligned(q, k, v, do)
+    scale = scale if scale is not None else d ** -0.5
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    args = (q, k, v, do, lse.contiguous(), delta, dq, dk, dv, causal, scale)
+    bwd_dkv(*args)
+    bwd_dq(*args)
+    return dq, dk, dv
+
+
+def _launch_bwd(which: int, q, k, v, do, lse, delta, dq, dk, dv,
+                causal: bool, scale: float):
+    b, sq, h, d = q.shape
+    sk, hk = k.shape[1], k.shape[2]
+    lib = _kernel_library("flash_bwd")
+    err = lib.rtt_flash_bwd(
+        which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), q.device.index or 0, b, h, hk, sq, sk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        scale, int(causal), _DTYPE_CODES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, ("flash_bwd_dkv", "flash_bwd_dq")[which])
+
+
+def bwd_dkv(q, k, v, do, lse, delta, dq, dk, dv, causal, scale):
+    """Launch the dK/dV kernel into ``dk``, ``dv`` (checked inputs, as
+    ``_flash_bwd_cuda`` prepares them)."""
+    global bwd_dkv_launches
+    _launch_bwd(0, q, k, v, do, lse, delta, dq, dk, dv, causal, scale)
+    bwd_dkv_launches += 1
+
+
+def bwd_dq(q, k, v, do, lse, delta, dq, dk, dv, causal, scale):
+    """Launch the dQ kernel into ``dq`` (checked inputs, as
+    ``_flash_bwd_cuda`` prepares them)."""
+    global bwd_dq_launches
+    _launch_bwd(1, q, k, v, do, lse, delta, dq, dk, dv, causal, scale)
+    bwd_dq_launches += 1

@@ -103,17 +103,30 @@ def test_plain_bf16_accumulates_in_f32_and_returns_input_dtype():
     ({"d": 32}, "head_dim"),
     ({"kvh": 3}, "do not divide"),
     ({"dtype": torch.float16}, "takes one of"),
-    ({"grad": True}, "training slice"),
 ])
 def test_kernel_input_checks(bad, match):
     d, kvh = bad.get("d", 64), bad.get("kvh", 2)
     dtype = bad.get("dtype", torch.bfloat16)
     q = torch.zeros(1, 8, 4, d, dtype=dtype)
     k = torch.zeros(1, 8, kvh, d, dtype=dtype)
-    if bad.get("grad"):
-        q.requires_grad_()
-    with pytest.raises((ValueError, NotImplementedError), match=match):
+    with pytest.raises(ValueError, match=match):
         tflash._check_inputs(q, k, k)
+
+
+def test_grad_inputs_reach_the_function():
+    # grad-enabled inputs go through the autograd Function (forward kernel,
+    # then the backward); the raw forward records no gradient and says so
+    q = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16, requires_grad=True)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16)
+    tflash._check_inputs(q, k, k)
+    out = tflash.flash_attention(q, k, k)
+    assert type(out.grad_fn).__name__ == "_FlashAttentionBackward"
+    out.float().sum().backward()
+    assert q.grad.shape == q.shape and q.grad.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="records no gradient"):
+        tflash.flash_fwd(q, k, k)
+    with torch.no_grad():
+        assert tflash.flash_attention(q, k, k).grad_fn is None
 
 
 def test_unsupported_device_raises():

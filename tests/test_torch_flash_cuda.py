@@ -1,14 +1,21 @@
-"""The flash-attention kernel (csrc/flash_fwd.cu) against its plain version,
-on the card. Every test is marked ``cuda`` and skips without an NVIDIA
-Hopper card. The file imports no JAX, so it runs where JAX is not installed:
+"""The flash-attention kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) against
+their plain versions, on the card. Every test is marked ``cuda`` and skips
+without an NVIDIA Hopper card. The file imports no JAX, so it runs where JAX
+is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_flash_cuda.py
 
-Tolerances: 1e-4 at float32 (only the order of the f32 sums differs);
-2e-2 on O and 1e-3 on LSE at bfloat16 (P is rounded to bf16 per kv tile
-against the running max in the kernel, once per row in the plain version,
-and O is rounded to bf16).
+Forward tolerances: 1e-4 at float32 (only the order of the f32 sums
+differs); 2e-2 on O and 1e-3 on LSE at bfloat16 (P is rounded to bf16 per kv
+tile against the running max in the kernel, once per row in the plain
+version, and O is rounded to bf16).
+
+Backward tolerances, on the largest error of dq, dk and dv relative to that
+gradient's largest magnitude: 1e-4 at float32 (the order of the f32 sums);
+2e-2 at bfloat16 (P and dS are rounded to bf16 in both versions, but from
+f32 values summed in another order, so a few round the other way; the
+outputs are rounded to bf16, 2^-8 of their size).
 """
 
 import pytest
@@ -17,8 +24,10 @@ import torch
 from ray_tpu_torch.models import (TransformerConfig, prefill,
                                   transformer_init)
 from ray_tpu_torch.ops import flash
+from ray_tpu_torch.train import make_lm_train_step
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -90,12 +99,84 @@ def test_misaligned_inputs_are_copied(cuda_device):
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
 
 
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
 @pytest.mark.cuda
-def test_grad_inputs_raise(cuda_device):
+def test_grad_inputs_reach_the_function(cuda_device):
     q, k, v = _qkv(cuda_device, 1, 64, 64, 2, 2, 64, torch.bfloat16)
     q.requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    counts = (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches)
+    out = flash.flash_attention(q, k, v)
+    assert "FlashAttention" in type(out.grad_fn).__name__
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (flash.launches, flash.bwd_dkv_launches,
+            flash.bwd_dq_launches) == tuple(c + 1 for c in counts)
+    with torch.no_grad():
+        o, lse = flash.flash_fwd_plain(q, k, v)
+        want, _, _ = flash.flash_bwd_plain(q, k, v, o, lse, 2 * o.float()
+                                           .bfloat16())
+    assert _rel_err(q.grad, want) <= BWD_TOL[torch.bfloat16]
+    with pytest.raises(ValueError, match="records no gradient"):
         flash.flash_fwd(q, k, v)
+
+
+# (b, sq, sk, h, kvh, d): ragged lengths, sq < sk (the causal offset), GQA,
+# tile-aligned; sq > sk only without the causal mask
+BWD_CASES = [((1, 100, 100, 2, 2, 64), True), ((1, 100, 100, 2, 2, 64), False),
+             ((2, 40, 72, 2, 2, 64), True), ((1, 90, 30, 2, 2, 128), False),
+             ((1, 64, 200, 4, 2, 128), True), ((2, 130, 130, 8, 2, 128), True),
+             ((2, 256, 256, 4, 4, 128), True),
+             ((2, 256, 256, 4, 4, 128), False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_match_plain(cuda_device, shape, causal, dtype):
+    q, k, v = _qkv(cuda_device, *shape, dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
+    before = (flash.bwd_dkv_launches, flash.bwd_dq_launches)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=causal)
+        got = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+        torch.cuda.synchronize()
+        want = flash.flash_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    assert (flash.bwd_dkv_launches, flash.bwd_dq_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype, name
+        assert torch.isfinite(g).all(), name
+        assert _rel_err(g, w) <= BWD_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_bwd_strided_grad_output_matches_plain(cuda_device):
+    # dO as a transposed view (strides no 16-byte load can follow along D)
+    q, k, v = _qkv(cuda_device, 1, 96, 96, 2, 2, 64, torch.bfloat16)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    do = torch.randn(1, 96, 64, 2, generator=gen,
+                     device=cuda_device).bfloat16().transpose(2, 3)
+    assert not do.is_contiguous()
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v)
+        got = flash.flash_bwd(q, k, v, out, lse, do)
+        want = flash.flash_bwd_plain(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16]
+
+
+@pytest.mark.cuda
+def test_bwd_refuses_causal_rows_that_see_no_key(cuda_device):
+    q, k, v = _qkv(cuda_device, 1, 90, 30, 2, 2, 128, torch.bfloat16)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=True)
+        with pytest.raises(ValueError, match="Sq <= Sk"):
+            flash.flash_bwd(q, k, v, out, lse, out, causal=True)
 
 
 @pytest.mark.cuda
@@ -110,3 +191,20 @@ def test_prefill_launches_kernel_once_per_layer(cuda_device):
         logits, cache = prefill(params, tokens, cfg, 64)
     assert flash.launches == cfg.n_layers
     assert torch.isfinite(logits).all() and cache["k"].shape[2] == 64
+
+
+@pytest.mark.cuda
+def test_train_step_launches_each_kernel_per_layer(cuda_device):
+    # remat: the forward kernel runs once per layer in the forward and once
+    # more in the recompute; each backward kernel once per layer
+    cfg = TransformerConfig(vocab_size=256, d_model=256, n_layers=3,
+                            n_heads=2, n_kv_heads=1, attn_impl="flash")
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda_device).manual_seed(0))
+    batch = place({"tokens": torch.randint(0, 256, (2, 70))})
+    flash.launches = flash.bwd_dkv_launches = flash.bwd_dq_launches = 0
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert (flash.launches, flash.bwd_dkv_launches,
+            flash.bwd_dq_launches) == (6, 3, 3)
+    assert torch.isfinite(metrics["loss"]) and metrics["step"] == 1

@@ -9,6 +9,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import models as tmodels
+from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.ops import _build
 
 REPO = Path(__file__).resolve().parents[1]
@@ -37,6 +38,14 @@ def test_port_imports_neither_jax_nor_ray_tpu(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_import_walk_covers_every_module_of_the_port():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    for module in ("ray_tpu_torch/train/__init__.py",
+                   "ray_tpu_torch/train/step.py",
+                   "ray_tpu_torch/ops/flash.py", "chip_smoke.py"):
+        assert module in names
+
+
 def _no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
@@ -54,6 +63,9 @@ ENTRY_POINTS = {
         {}, torch.zeros(1, 4, dtype=torch.long), cfg, max_new_tokens=2),
     "init_cache": lambda cfg: tmodels.init_cache(cfg, 1, 8),
     "params_from_jax": lambda cfg: tmodels.params_from_jax({}, cfg),
+    "transformer_loss": lambda cfg: tmodels.transformer_loss(
+        {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg),
+    "make_lm_train_step": lambda cfg: ttrain.make_lm_train_step(cfg),
 }
 
 
@@ -99,12 +111,21 @@ def test_build_targets_sm90a_into_ignored_dir():
     ignored = (REPO / ".gitignore").read_text().split()
     assert "build/" in ignored
     assert sorted(p.name for p in _build.SRC_DIR.glob("*.cu")) == \
-        ["flash_fwd.cu"]
+        ["flash_bwd.cu", "flash_fwd.cu"]
 
 
 def test_kernel_source_calls_no_library_attention():
-    src = (_build.SRC_DIR / "flash_fwd.cu").read_text()
-    includes = {line.split()[1] for line in src.splitlines()
-                if line.startswith("#include")}
-    assert includes == {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>"}
-    assert "_fwd_kernel" in src   # names the TPU kernel it replaces
+    # the CUDA runtime and bf16 headers, and the port's own shared header
+    allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>",
+               '"flash_common.cuh"'}
+    names = {"flash_fwd.cu": ["_fwd_kernel"],   # the TPU kernels replaced
+             "flash_bwd.cu": ["_bwd_dkv_kernel", "_bwd_dq_kernel"],
+             "flash_common.cuh": []}
+    assert sorted(p.name for p in _build.SRC_DIR.iterdir()) == sorted(names)
+    for name, tpu_kernels in names.items():
+        src = (_build.SRC_DIR / name).read_text()
+        includes = {line.split()[1] for line in src.splitlines()
+                    if line.startswith("#include")}
+        assert includes <= allowed, name
+        for kernel in tpu_kernels:
+            assert kernel in src, name
