@@ -7,15 +7,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 1. Card and build: the card's name and power limit, then the build of every
    CUDA source of the port (nvcc for sm_90a, flash_fwd.cu and flash_bwd.cu
-   in parallel), with its seconds and ptxas' register and spill report.
+   in parallel), with its seconds and ptxas' register and spill report; for
+   the bf16 forward kernel (TMA ring, warp-specialised, wgmma) also its
+   registers at launch, local memory and dynamic shared memory.
 2. Kernel against its plain version: the flash-attention forward kernel
    (csrc/flash_fwd.cu) and ``flash_fwd_plain`` on the same card tensors, at
    bf16 and f32, over the serving path's prefill shape, the flagship's
-   max_seq, a ragged length, Sq < Sk, GQA and head_dim 64. O and LSE errors
-   are printed beside their tolerances, with the kernel's time, the plain
-   version's, the least time the card could take (the bound) and, as a
-   yardstick only, torch's scaled_dot_product_attention (the port never
-   calls it).
+   max_seq, a ragged length, Sq < Sk, causal Sq > Sk (whose rows that see
+   no key must hold exactly O = 0 and LSE = -1e30), q, k and v as strided
+   views of one fused [B, S, 3, H, D] tensor, GQA and head_dim 64. O and
+   LSE errors are printed beside their tolerances, with the kernel's time
+   (CUDA events around the wrapper, and the kernel's own device time from
+   torch.profiler), the plain version's, the least time the card could take
+   (the bound) and, as a yardstick only, torch's
+   scaled_dot_product_attention (the port never calls it).
 3. Serving at full width: the flagship LM (vocab 32768, d_model 2048, 10
    layers, 16 heads, head_dim 128, d_ff 8192, tied embeddings; random
    weights from a seed) answers a batch of 8 prompts of 128 tokens with 256
@@ -113,6 +118,27 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=10):
+    """Mean milliseconds of device time of the kernels ``fn`` launches
+    (torch.profiler's kernel intervals), free of the host's launch cost;
+    None where the profiler records no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = _device_kernels(prof)
+    if not events:
+        return None
+    return sum(e.time_range.elapsed_us() for e in events) / iters / 1e3
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def _visible_pairs(sq, sk, causal):
     """(q, k) pairs the mask leaves, the diagonal offset by sk - sq."""
     if not causal:
@@ -174,16 +200,37 @@ def phase_card_and_build():
     _build.build_all()
     print(f"[build] seconds={time.perf_counter() - t0:.1f} (nvcc for every "
           f"stale source, in parallel) into {_build.BUILD_DIR}", flush=True)
+    spills = {}
     for name in ("flash_fwd", "flash_bwd"):
+        entry = ""
         for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
+            if ("spill stores" in line and "bf16" in entry
+                    and name == "flash_fwd"):
+                spills[f"{name}:{entry[-60:]}"] = line.strip()
+            if ("registers" in line or "spill" in line or "Compiling" in line
+                    or "C75" in line or "arning" in line):
                 print(f"[build] {name}: {line.strip()}")
+    from ray_tpu_torch.ops import flash
+    attrs = {d: flash.fwd_kernel_attributes(d) for d in (64, 128)}
+    for d, a in attrs.items():
+        print(f"[build] flash_fwd bf16 kernel D {d}: {a['registers']} "
+              f"registers a thread at launch (setmaxnreg then moves them: "
+              f"producer 24, consumers 240), {a['local_bytes']} bytes of "
+              f"local memory a thread, {a['smem_bytes']} bytes of dynamic "
+              f"shared memory", flush=True)
+    check(len(spills) == 2 and all("0 bytes spill stores" in v
+                                   for v in spills.values()),
+          f"bf16 forward kernels spill or are missing from ptxas' report: "
+          f"{spills}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[setup] torch.backends.cuda.matmul.allow_tf32=False, "
           "torch.backends.cudnn.allow_tf32=False: f32 products run in full "
           "f32", flush=True)
-    return card
+    return card, {"fwd_bf16": {str(d): a for d, a in attrs.items()},
+                  "ptxas_bf16_spills": spills}
 
 
 # ---------------------------------------------------------------------------
@@ -197,9 +244,25 @@ CASES = [
     ("max_seq_full", (8, 2048, 2048, 16, 16, 128), False),
     ("ragged", (2, 1000, 1000, 16, 16, 128), True),
     ("sq_lt_sk", (2, 300, 1000, 16, 16, 128), True),
+    ("sq_gt_sk", (2, 300, 100, 16, 16, 128), True),
+    ("fused_qkv_view", (2, 1000, 1000, 16, 16, 128), True),
     ("gqa", (2, 512, 512, 16, 4, 128), True),
     ("head_dim_64", (2, 777, 777, 8, 8, 64), True),
 ]
+# cases whose q, k and v are strided views of one [B, S, 3, H, D] tensor
+FUSED = {"fused_qkv_view"}
+
+
+def _case_inputs(name, shape, gen):
+    """q, k, v maker for one case: fn(dtype) -> (q, k, v) on the card."""
+    b, sq, sk, h, kvh, d = shape
+    if name in FUSED:
+        qkv = torch.randn(b, sq, 3, h, d, generator=gen, device="cuda")
+        return lambda dtype: qkv.to(dtype).unbind(2)
+    q = torch.randn(b, sq, h, d, generator=gen, device="cuda")
+    k = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
+    v = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
+    return lambda dtype: (q.to(dtype), k.to(dtype), v.to(dtype))
 
 
 def _library_ms(q, k, v, causal):
@@ -212,19 +275,22 @@ def _library_ms(q, k, v, causal):
                                      device=q.device).tril(sk - sq)
     else:
         kw["is_causal"] = causal
-    return cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    return cuda_ms(sdpa), device_ms(sdpa)
 
 
 def phase_kernel_checks():
     from ray_tpu_torch.ops import flash
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
-    for name, (b, sq, sk, h, kvh, d), causal in CASES:
-        q0 = torch.randn(b, sq, h, d, generator=gen, device="cuda")
-        k0 = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
-        v0 = torch.randn(b, sk, kvh, d, generator=gen, device="cuda")
+    for name, shape, causal in CASES:
+        b, sq, sk, h, kvh, d = shape
+        make = _case_inputs(name, shape, gen)
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = q0.to(dtype), k0.to(dtype), v0.to(dtype)
+            q, k, v = make(dtype)
             with torch.inference_mode():
                 out, lse = flash.flash_fwd(q, k, v, causal=causal)
                 torch.cuda.synchronize()
@@ -232,29 +298,46 @@ def phase_kernel_checks():
                 err = (out.float() - want.float()).abs().max().item()
                 lse_err = (lse - want_lse).abs().max().item()
                 check(torch.isfinite(out).all().item(), f"{name}: non-finite O")
-                ms = cuda_ms(lambda: flash.flash_fwd(q, k, v, causal=causal))
+                exact = ""
+                if causal and sq > sk:   # rows that see no key, exactly
+                    blind = sq - sk
+                    check(bool((lse[:, :, :blind] == -1e30).all())
+                          and bool((out[:, :blind] == 0).all())
+                          and bool((want_lse[:, :, :blind] == -1e30).all()),
+                          f"{name}: rows that see no key are not exactly "
+                          f"O = 0, LSE = -1e30")
+                    exact = f" rows_without_key={blind}: O=0, LSE=-1e30 exact"
+
+                def fn():
+                    return flash.flash_fwd(q, k, v, causal=causal)
+
+                ms, dev_ms = cuda_ms(fn), device_ms(fn)
                 plain_ms = cuda_ms(lambda: flash.flash_fwd_plain(
                     q, k, v, causal=causal), iters=3, warmup=1)
-                lib_ms = _library_ms(q, k, v, causal)
+                lib_ms, lib_dev_ms = _library_ms(q, k, v, causal)
             bound_ms, bound_by = attention_bound(b, sq, sk, h, kvh, d,
                                                  causal, dtype)
             tol = TOL[dtype]
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
             print(f"[kernel] {name} {tag} b={b} sq={sq} sk={sk} h={h} "
-                  f"kvh={kvh} d={d} causal={causal}: "
+                  f"kvh={kvh} d={d} causal={causal}"
+                  f"{' fused-qkv strided views' if name in FUSED else ''}: "
                   f"max_abs_err O={err:.3e} (tol {tol['out']:.0e}) "
-                  f"LSE={lse_err:.3e} (tol {tol['lse']:.0e}) "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"LSE={lse_err:.3e} (tol {tol['lse']:.0e}){exact} "
+                  f"kernel_ms={ms:.4f} device_ms={_fmt(dev_ms)} "
+                  f"plain_ms={plain_ms:.4f} "
                   f"bound_ms={bound_ms:.4f} ({bound_by}) "
-                  f"library_ms={lib_ms:.4f} "
-                  f"bound/kernel={bound_ms / ms:.3f}", flush=True)
+                  f"library_ms={lib_ms:.4f} library_device_ms="
+                  f"{_fmt(lib_dev_ms)} bound/kernel={bound_ms / ms:.3f}",
+                  flush=True)
             check(err <= tol["out"] and lse_err <= tol["lse"],
                   f"{name} {tag}: kernel disagrees with its plain version")
             results[(name, tag)] = dict(
-                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=lib_ms,
-                shape=[b, sq, sk, h, kvh, d])
-        del q0, k0, v0
+                max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library_device_ms=lib_dev_ms, shape=[b, sq, sk, h, kvh, d])
+            del q, k, v
+        del make
         torch.cuda.empty_cache()
     return results
 
@@ -733,7 +816,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port runs on an NVIDIA card",
               file=sys.stderr)
         return 1
-    card = phase_card_and_build()
+    card, build = phase_card_and_build()
     results = phase_kernel_checks()
     bwd = phase_backward_checks()
     serve_launches, _ = phase_serving(card)
@@ -757,14 +840,17 @@ def main() -> int:
         "tol": TOL[torch.bfloat16]["out"],
         "cases_passed": len(results),
         "ms": fwd_main["ms"],
+        "device_ms": fwd_main["device_ms"],
         "plain_ms": fwd_main["plain_ms"],
         "bound_ms": fwd_main["bound_ms"],
         "bound_by": fwd_main["bound_by"],
         "library_ms": fwd_main["library_ms"],
+        "library_device_ms": fwd_main["library_device_ms"],
         "shape": fwd_main["shape"],
         "train_shape": {k: train_fwd[k] for k in
-                        ("ms", "plain_ms", "bound_ms", "library_ms",
-                         "shape")},
+                        ("ms", "device_ms", "plain_ms", "bound_ms",
+                         "library_ms", "library_device_ms", "shape")},
+        "build": build,
         "dtype": "bfloat16",
         "card": card,
     }]

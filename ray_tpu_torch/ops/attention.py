@@ -97,20 +97,21 @@ def mha(q, k, v, *, causal: bool = True, scale: Optional[float] = None,
         block_size: int = 512, impl: str = "auto"):
     """Dispatch: 'reference' | 'blockwise' | 'flash' | 'auto'.
 
-    auto = the flash kernel for CUDA tensors (it takes any sequence length,
-    so the TPU's tile-alignment rule does not apply), else blockwise for long
-    sequences, else reference.
+    auto = the flash kernel for CUDA tensors it takes (``kernel_takes``: any
+    sequence length, so the TPU's tile-alignment rule does not apply), else
+    blockwise for long sequences, else reference. 'flash' on the card raises
+    for inputs the kernel does not take.
     """
     if impl == "reference":
         return attention_reference(q, k, v, causal=causal, scale=scale)
     if impl == "blockwise":
         return blockwise_attention(q, k, v, causal=causal, scale=scale,
                                    block_size=block_size)
-    if impl == "flash" or (impl == "auto" and q.is_cuda):
-        from ray_tpu_torch.ops.flash import flash_attention
-        return flash_attention(q, k, v, causal=causal, scale=scale)
-    if impl != "auto":
+    if impl not in ("flash", "auto"):
         raise ValueError(f"unknown attention impl {impl!r}")
+    from ray_tpu_torch.ops.flash import flash_attention, kernel_takes
+    if impl == "flash" or (q.is_cuda and kernel_takes(q, k, v)):
+        return flash_attention(q, k, v, causal=causal, scale=scale)
     if q.shape[1] >= 2048:
         return blockwise_attention(q, k, v, causal=causal, scale=scale,
                                    block_size=block_size)

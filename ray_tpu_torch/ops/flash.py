@@ -40,6 +40,14 @@ _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def kernel_takes(q, k, v) -> bool:
+    """Whether the CUDA kernels take these inputs: head_dim in
+    ``_HEAD_DIMS`` and q, k and v all of one dtype in ``_DTYPE_CODES``.
+    ``mha(impl="auto")`` sends CUDA tensors to the kernel only then."""
+    return (q.shape[-1] in _HEAD_DIMS and q.dtype in _DTYPE_CODES
+            and k.dtype == q.dtype and v.dtype == q.dtype)
+
+
 def flash_attention_plain(q, k, v, causal: bool, scale: float):
     """Plain PyTorch version of ``_fwd_kernel``: q [BH, Sq, D], k/v
     [BH, Sk, D] -> (out [BH, Sq, D] in q's dtype, lse [BH, Sq] f32).
@@ -234,11 +242,12 @@ def _check_inputs(q, k, v):
 
 
 def _vector_ready(x):
-    """16-byte vector loads need the last dim contiguous, every other stride
-    a multiple of 16 bytes, and a 16-byte aligned base."""
+    """16-byte vector loads, and the forward's TMA tensor maps, need the last
+    dim contiguous, every other stride a positive multiple of 16 bytes, and
+    a 16-byte aligned base."""
     per16 = 16 // x.element_size()
     return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-            and all(s % per16 == 0 for s in x.stride()[:-1]))
+            and all(s > 0 and s % per16 == 0 for s in x.stride()[:-1]))
 
 
 _libs = {}
@@ -256,6 +265,9 @@ def _kernel_library(name: str):
             fn, err = lib.rtt_flash_fwd, lib.rtt_error_string
             fn.argtypes = ([ptr] * 5 + [i32] * 7 + [i64] * 12
                            + [ctypes.c_float, i32, i32, ptr])
+            attrs = lib.rtt_flash_fwd_bf16_attributes
+            attrs.argtypes = [i32] + [ctypes.POINTER(i32)] * 3
+            attrs.restype = i32
         else:
             fn, err = lib.rtt_flash_bwd, lib.rtt_flash_bwd_error_string
             fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
@@ -266,6 +278,21 @@ def _kernel_library(name: str):
         lib.error_string = err
         _libs[name] = lib
     return lib
+
+
+def fwd_kernel_attributes(head_dim: int) -> dict:
+    """What the bf16 forward kernel for ``head_dim`` was built with (needs
+    the card): registers a thread at launch, local memory a thread (spills)
+    and the dynamic shared memory of a launch, in bytes."""
+    lib = _kernel_library("flash_fwd")
+    out = [ctypes.c_int() for _ in range(3)]
+    err = lib.rtt_flash_fwd_bf16_attributes(
+        head_dim, *(ctypes.byref(x) for x in out))
+    if err != 0:
+        raise RuntimeError(f"cudaFuncGetAttributes failed: "
+                           f"{lib.error_string(err).decode()} (code {err})")
+    return dict(zip(("registers", "local_bytes", "smem_bytes"),
+                    (x.value for x in out)))
 
 
 def _raise_on(lib, err: int, what: str):

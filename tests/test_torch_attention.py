@@ -14,6 +14,7 @@ import torch
 
 from ray_tpu.ops import attention as jattn
 from ray_tpu_torch.ops import attention as tattn
+from ray_tpu_torch.ops import flash as tflash
 
 OUT_TOL = 2e-5
 GRAD_TOL = 2e-4
@@ -77,6 +78,43 @@ def test_mha_dispatch_matches_jax_reference(impl):
     got = tattn.mha(*map(torch.from_numpy, arrays), causal=True,
                     block_size=32, impl=impl).numpy()
     np.testing.assert_allclose(got, want, atol=OUT_TOL, rtol=OUT_TOL)
+
+
+@pytest.mark.parametrize("sq", [64, 2048])
+def test_mha_auto_matches_jax_auto(sq):
+    # head_dim 32, which the kernel does not take: both stacks send it to
+    # reference attention, or to blockwise at Sq >= 2048
+    arrays = _qkv(1, sq, sq, 2, 2, 32, seed=6)
+    want = np.asarray(jattn.mha(*map(jnp.asarray, arrays), causal=True,
+                                impl="auto"))
+    got = tattn.mha(*map(torch.from_numpy, arrays), causal=True,
+                    impl="auto").numpy()
+    np.testing.assert_allclose(got, want, atol=OUT_TOL, rtol=OUT_TOL)
+
+
+def _empty(d, dtype, kv_dtype=None):
+    kv_dtype = kv_dtype or dtype
+    return (torch.empty(1, 4, 2, d, dtype=dtype),
+            torch.empty(1, 4, 2, d, dtype=kv_dtype),
+            torch.empty(1, 4, 2, d, dtype=kv_dtype))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kernel_takes_its_head_dims_and_dtypes(d, dtype):
+    assert tflash.kernel_takes(*_empty(d, dtype))
+
+
+@pytest.mark.parametrize("d,dtype,kv_dtype", [
+    (32, torch.bfloat16, None), (96, torch.bfloat16, None),
+    (256, torch.bfloat16, None), (32, torch.float32, None),
+    (128, torch.float16, None), (64, torch.float16, None),
+    (128, torch.bfloat16, torch.float32),
+])
+def test_kernel_takes_refuses_other_shapes(d, dtype, kv_dtype):
+    # what mha(impl="auto") sends elsewhere on the card, as the JAX auto
+    # sends shapes its kernel cannot take to blockwise or reference
+    assert not tflash.kernel_takes(*_empty(d, dtype, kv_dtype))
 
 
 def test_mha_rejects_unknown_impl():

@@ -24,6 +24,7 @@ import torch
 from ray_tpu_torch.models import (TransformerConfig, prefill,
                                   transformer_init)
 from ray_tpu_torch.ops import flash
+from ray_tpu_torch.ops.attention import attention_reference, mha
 from ray_tpu_torch.train import make_lm_train_step
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
@@ -47,10 +48,14 @@ def _qkv(dev, b, sq, sk, h, kvh, d, dtype, seed=0):
 
 
 # (b, sq, sk, h, kvh, d): ragged lengths, sq < sk, sq > sk (rows that see
-# no key), GQA, a tile-aligned case
+# no key), GQA, a tile-aligned case; one past the 128-row q tile (129) and
+# three kv tiles through the two-stage K/V ring (257); S 2048 at D 64, where
+# the ring wraps eight times; GQA 16:4 at S 1024
 SHAPES = [(1, 100, 100, 2, 2, 64), (2, 40, 72, 2, 2, 64),
           (1, 90, 30, 2, 2, 128), (1, 64, 64, 4, 2, 128),
-          (2, 256, 256, 4, 4, 128)]
+          (2, 256, 256, 4, 4, 128), (2, 129, 129, 2, 2, 128),
+          (1, 257, 257, 2, 2, 128), (1, 2048, 2048, 2, 2, 64),
+          (1, 1024, 1024, 16, 4, 128)]
 
 
 @pytest.mark.cuda
@@ -72,16 +77,59 @@ def test_kernel_matches_plain(cuda_device, shape, causal, dtype):
 
 
 @pytest.mark.cuda
-def test_strided_inputs_match_plain(cuda_device):
-    # q, k, v as slices of one fused [B, S, 3, H, D] projection
+@pytest.mark.parametrize("s,d,causal", [(130, 128, True), (300, 64, False),
+                                        (1000, 128, True)])
+def test_strided_inputs_match_plain(cuda_device, s, d, causal):
+    # q, k, v as slices of one fused [B, S, 3, H, D] projection: the tensor
+    # maps and loads follow the strides, no copy is made
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    qkv = torch.randn(2, 130, 3, 4, 128, generator=gen,
+    qkv = torch.randn(2, s, 3, 4, d, generator=gen,
                       device=cuda_device).bfloat16()
     q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and flash._vector_ready(q)
     with torch.inference_mode():
-        out, _ = flash.flash_fwd(q, k, v, causal=True)
-        want, _ = flash.flash_fwd_plain(q, k, v, causal=True)
+        out, lse = flash.flash_fwd(q, k, v, causal=causal)
+        want, want_lse = flash.flash_fwd_plain(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 100, 4, 4, 128),
+                                   (1, 90, 30, 2, 2, 64),
+                                   (1, 257, 1, 2, 2, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rows_that_see_no_key_are_exact(cuda_device, shape, dtype):
+    # causal with Sq > Sk: the first Sq - Sk rows see no key. The plain
+    # version gives them O = 0 and LSE = -1e30 + log(1e-30), which is -1e30
+    # in f32; the kernel must write exactly that
+    q, k, v = _qkv(cuda_device, *shape, dtype, seed=3)
+    blind = shape[1] - shape[2]
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=True)
+        want, want_lse = flash.flash_fwd_plain(q, k, v, causal=True)
+    assert bool((want_lse[:, :, :blind] == -1e30).all())
+    assert bool((lse[:, :, :blind] == -1e30).all())
+    assert bool((out[:, :blind] == 0).all())
+    tol_out, tol_lse = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol_out,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=tol_lse, rtol=0)
+
+
+@pytest.mark.cuda
+def test_mha_auto_sends_other_head_dims_to_reference(cuda_device):
+    # head_dim 32 is not the kernel's: auto returns reference attention, as
+    # the JAX auto does, and launches nothing; 'flash' still raises
+    q, k, v = _qkv(cuda_device, 2, 70, 70, 4, 2, 32, torch.bfloat16)
+    before = flash.launches
+    with torch.inference_mode():
+        got = mha(q, k, v, causal=True, impl="auto")
+        want = attention_reference(q, k, v, causal=True)
+        with pytest.raises(ValueError, match="head_dim"):
+            mha(q, k, v, causal=True, impl="flash")
+    assert flash.launches == before
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 @pytest.mark.cuda
