@@ -8,8 +8,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. Card and build: the card's name and power limit, then the build of every
    CUDA source of the port (nvcc for sm_90a, flash_fwd.cu and flash_bwd.cu
    in parallel), with its seconds and ptxas' register and spill report; for
-   the bf16 forward kernel (TMA ring, warp-specialised, wgmma) also its
-   registers at launch, local memory and dynamic shared memory.
+   the bf16 forward, dK/dV and dQ kernels (TMA ring, warp-specialised,
+   wgmma) also their registers at launch, local memory and dynamic shared
+   memory. Any spill in those kernels fails the run.
 2. Kernel against its plain version: the flash-attention forward kernel
    (csrc/flash_fwd.cu) and ``flash_fwd_plain`` on the same card tensors, at
    bf16 and f32, over the serving path's prefill shape, the flagship's
@@ -28,12 +29,14 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (the prefill). The prefill's last-position logits are held against the
    plain attention path, and a small model's logits on the card against the
    CPU.
-2b. Backward kernels against their plain version: the dK/dV and dQ kernels
-   (csrc/flash_bwd.cu) and ``flash_bwd_plain`` on the same card tensors with
-   a random dO, at bf16 and f32, over the flagship's training shape, a
-   non-causal case, a ragged length, Sq < Sk, GQA and head_dim 64; errors
-   relative to each gradient's largest magnitude, each kernel's time, the
-   plain version's, the bound and, as a yardstick only, the backward of
+2b. Backward kernels against their plain version: the Δ pass, dK/dV and dQ
+   kernels (csrc/flash_bwd.cu) and ``flash_bwd_plain`` on the same card
+   tensors with a random dO, at bf16 and f32, over the flagship's training
+   shape, a non-causal case, a ragged length, Sq < Sk, GQA and head_dim 64;
+   errors relative to each gradient's largest magnitude, a second call that
+   must give the same bits, each kernel's time (CUDA events and profiler
+   device time) and share of its bound, the whole wrapper's time, the plain
+   version's, the bound and, as a yardstick only, the backward of
    scaled_dot_product_attention.
 4. Long prefill: batch 2 at S = 2048 (max_seq) through the kernel, against
    the plain path.
@@ -41,9 +44,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    remat on) takes 2 warm-up and 5 timed steps of ``make_lm_train_step`` on
    a fixed batch of 8 x 2048 tokens. Each step must launch the forward
    kernel 2 x n_layers times (forward and remat recompute) and each backward
-   kernel n_layers times, with finite metrics and a falling loss; the first
-   step is held against the plain attention path. Step time, tokens/s, MFU,
-   peak memory and the flash kernels' share of the step's device time.
+   kernel (Δ, dK/dV, dQ) n_layers times, with finite metrics and a falling
+   loss; the first step is held against the plain attention path. Step
+   time, tokens/s, MFU, peak memory and the flash kernels' (and the
+   backward's) share of the step's device time.
 6. A small f32 model takes one training step on the card (the kernels) and
    one on the CPU (the plain versions): loss, grad_norm and every updated
    parameter agree.
@@ -206,31 +210,34 @@ def phase_card_and_build():
         for line in _build.build_log(name).splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1] if "'" in line else line
-            if ("spill stores" in line and "bf16" in entry
-                    and name == "flash_fwd"):
+            if "spill stores" in line and "bf16_kernel" in entry:
                 spills[f"{name}:{entry[-60:]}"] = line.strip()
             if ("registers" in line or "spill" in line or "Compiling" in line
                     or "C75" in line or "arning" in line):
                 print(f"[build] {name}: {line.strip()}")
     from ray_tpu_torch.ops import flash
-    attrs = {d: flash.fwd_kernel_attributes(d) for d in (64, 128)}
-    for d, a in attrs.items():
-        print(f"[build] flash_fwd bf16 kernel D {d}: {a['registers']} "
-              f"registers a thread at launch (setmaxnreg then moves them: "
-              f"producer 24, consumers 240), {a['local_bytes']} bytes of "
-              f"local memory a thread, {a['smem_bytes']} bytes of dynamic "
-              f"shared memory", flush=True)
-    check(len(spills) == 2 and all("0 bytes spill stores" in v
-                                   for v in spills.values()),
-          f"bf16 forward kernels spill or are missing from ptxas' report: "
+    attrs = {f"fwd_bf16_d{d}": flash.fwd_kernel_attributes(d)
+             for d in (64, 128)}
+    for d in (64, 128):
+        for part, a in flash.bwd_kernel_attributes(d).items():
+            attrs[f"bwd_{part}_bf16_d{d}"] = a
+    for name, a in attrs.items():
+        print(f"[build] {name}: {a['registers']} registers a thread at "
+              f"launch (setmaxnreg then moves them: producer 24, consumers "
+              f"240), {a['local_bytes']} bytes of local memory a thread, "
+              f"{a['smem_bytes']} bytes of dynamic shared memory", flush=True)
+    # the forward, dK/dV and dQ bf16 kernels at D 64 and 128
+    check(len(spills) == 6 and all("0 bytes spill stores" in v
+                                   for v in spills.values())
+          and all(a["local_bytes"] == 0 for a in attrs.values()),
+          f"bf16 flash kernels spill or are missing from ptxas' report: "
           f"{spills}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("[setup] torch.backends.cuda.matmul.allow_tf32=False, "
           "torch.backends.cudnn.allow_tf32=False: f32 products run in full "
           "f32", flush=True)
-    return card, {"fwd_bf16": {str(d): a for d, a in attrs.items()},
-                  "ptxas_bf16_spills": spills}
+    return card, {"attributes": attrs, "ptxas_bf16_spills": spills}
 
 
 # ---------------------------------------------------------------------------
@@ -386,6 +393,26 @@ def _rel_err(got, want):
             / want.float().abs().max()).item()
 
 
+def delta_bound(b, sq, h, d, dtype):
+    """Least milliseconds for the Δ pass: O and dO read once, LSE read once
+    and LSE·log2 e written (bf16 only), Δ written; 2*D operations a row on
+    the FMA units."""
+    es = torch.empty((), dtype=dtype).element_size()
+    stats = b * h * sq * 4 * (3 if dtype == torch.bfloat16 else 1)
+    nbytes = 2 * b * sq * h * d * es + stats
+    t_ops = 2.0 * b * sq * h * d / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _share(bound, times):
+    """Share of the bound reached: by device time where the profiler gave
+    one, else by CUDA-event time."""
+    ms_events, ms_device = times
+    return bound / (ms_device if ms_device is not None else ms_events)
+
+
 def phase_backward_checks():
     from ray_tpu_torch.ops import flash
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -402,6 +429,9 @@ def phase_backward_checks():
                 out, lse = flash.flash_fwd(q, k, v, causal=causal)
                 got = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
                 torch.cuda.synchronize()
+                again = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+                torch.cuda.synchronize()
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
                 want = flash.flash_bwd_plain(q, k, v, out, lse, do,
                                              causal=causal)
                 rel = [_rel_err(g, w) for g, w in zip(got, want)]
@@ -409,41 +439,64 @@ def phase_backward_checks():
                            for g, w in zip(got, want)]
                 check(all(torch.isfinite(g).all().item() for g in got),
                       f"{name}: non-finite gradient")
-                args = (q, k, v, do, lse, flash.bwd_delta(out, do),
+                check(same, f"{name}: two backward calls differ")
+                lse_k, delta = flash.bwd_preprocess(out, do, lse)
+                delta_want = flash.bwd_delta(out, do)
+                delta_err = _rel_err(delta[..., :sq], delta_want)
+                delta_abs = (delta[..., :sq] - delta_want).abs().max().item()
+                args = (q, k, v, do, lse_k, delta,
                         *(torch.empty_like(g) for g in got), causal, scale)
-                dkv_ms = cuda_ms(lambda: flash.bwd_dkv(*args))
-                dq_ms = cuda_ms(lambda: flash.bwd_dq(*args))
-                wrapper_ms = cuda_ms(lambda: flash.flash_bwd(
-                    q, k, v, out, lse, do, causal=causal))
+
+                def run_delta():
+                    flash.bwd_preprocess(out, do, lse)
+
+                def run_dkv():
+                    flash.bwd_dkv(*args)
+
+                def run_dq():
+                    flash.bwd_dq(*args)
+
+                def run_all():
+                    flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+
+                times = {part: (cuda_ms(fn), device_ms(fn)) for part, fn in
+                         (("delta", run_delta), ("dkv", run_dkv),
+                          ("dq", run_dq), ("wrapper", run_all))}
+                delta_plain_ms = cuda_ms(lambda: flash.bwd_delta(out, do))
                 plain_ms = cuda_ms(lambda: flash.flash_bwd_plain(
                     q, k, v, out, lse, do, causal=causal), iters=3, warmup=1)
-                del want, got
+                del want, got, again
             lib_ms = _library_bwd_ms(q, k, v, do, causal)
             shape = (b, sq, sk, h, kvh, d, causal, dtype)
-            bound_ms, bound_by = backward_bound(*shape)
-            dkv_bound = backward_bound(*shape, part="dkv")
-            dq_bound = backward_bound(*shape, part="dq")
-            kernel_ms = dkv_ms + dq_ms
+            bounds = {"wrapper": backward_bound(*shape),
+                      "dkv": backward_bound(*shape, part="dkv"),
+                      "dq": backward_bound(*shape, part="dq"),
+                      "delta": delta_bound(b, sq, h, d, dtype)}
             tol = BWD_TOL[dtype]
             tag = "bf16" if dtype == torch.bfloat16 else "f32"
+            timing = " ".join(
+                f"{part}: ms={times[part][0]:.4f} device_ms="
+                f"{_fmt(times[part][1])} bound_ms={bounds[part][0]:.4f} "
+                f"({bounds[part][1]}) share="
+                f"{_share(bounds[part][0], times[part]):.3f};"
+                for part in ("delta", "dkv", "dq", "wrapper"))
             print(f"[backward] {name} {tag} b={b} sq={sq} sk={sk} h={h} "
                   f"kvh={kvh} d={d} causal={causal}: max_rel_err "
                   f"dq={rel[0]:.3e} dk={rel[1]:.3e} dv={rel[2]:.3e} "
                   f"(tol {tol:.0e}; max_abs_err dq={abs_err[0]:.3e} "
-                  f"dk={abs_err[1]:.3e} dv={abs_err[2]:.3e}) "
-                  f"kernel_ms dkv={dkv_ms:.4f} dq={dq_ms:.4f} "
-                  f"sum={kernel_ms:.4f} wrapper_ms={wrapper_ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                  f"({bound_by}; dkv {dkv_bound[0]:.4f}, dq "
-                  f"{dq_bound[0]:.4f}) library_ms={lib_ms:.4f} "
-                  f"bound/kernel={bound_ms / kernel_ms:.3f}", flush=True)
-            check(max(rel) <= tol,
+                  f"dk={abs_err[1]:.3e} dv={abs_err[2]:.3e}) delta_rel_err="
+                  f"{delta_err:.3e} (tol 1e-5) bitwise_repeatable={same} | "
+                  f"{timing} delta_plain_ms={delta_plain_ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}",
+                  flush=True)
+            check(max(rel) <= tol and delta_err <= 1e-5,
                   f"{name} {tag}: backward kernels disagree with their "
                   f"plain version")
             results[(name, tag)] = dict(
-                rel=rel, abs=abs_err, dkv_ms=dkv_ms, dq_ms=dq_ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                dkv_bound=dkv_bound, dq_bound=dq_bound, library_ms=lib_ms,
+                rel=rel, abs=abs_err, delta_err=delta_err,
+                delta_abs=delta_abs, times=times,
+                bounds=bounds, plain_ms=plain_ms,
+                delta_plain_ms=delta_plain_ms, library_ms=lib_ms,
                 shape=[b, sq, sk, h, kvh, d])
         del q0, k0, v0, do0
         torch.cuda.empty_cache()
@@ -650,12 +703,14 @@ def phase_long_prefill():
 
 def _launch_counts():
     from ray_tpu_torch.ops import flash
-    return (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches)
+    return (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches,
+            flash.bwd_delta_launches)
 
 
 def _reset_launch_counts():
     from ray_tpu_torch.ops import flash
     flash.launches = flash.bwd_dkv_launches = flash.bwd_dq_launches = 0
+    flash.bwd_delta_launches = 0
 
 
 def _first_step(cfg, tokens, seed):
@@ -678,7 +733,7 @@ def phase_training(card):
                                                (batch, seq))
     n_params = transformer_num_params(cfg)
     L = cfg.n_layers
-    per_step = (2 * L, L, L)   # forward + remat recompute, dK/dV, dQ
+    per_step = (2 * L, L, L, L)   # forward + remat recompute, dK/dV, dQ, Δ
 
     plain = _first_step(dataclasses.replace(cfg, attn_impl="reference"),
                         tokens, seed)
@@ -698,7 +753,7 @@ def phase_training(card):
         gnorms.append(metrics["grad_norm"].item())
         check(_launch_counts() == per_step,
               f"a training step launched {_launch_counts()}, want "
-              f"{per_step} (forward, dK/dV, dQ)")
+              f"{per_step} (forward, dK/dV, dQ, Δ)")
     check(abs(losses[0] - plain[0]) <= TRAIN_LOSS_TOL
           and abs(gnorms[0] - plain[1]) <= TRAIN_GNORM_RTOL * plain[1],
           f"first step: kernel path loss {losses[0]}, grad_norm "
@@ -737,7 +792,8 @@ def phase_training(card):
     print(f"[train] {steps} timed steps: {step_ms:.1f} ms/step, "
           f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} (6N + 12LdS = "
           f"{flops_per_token:.4e} flop/token against 989 TFLOP/s), peak "
-          f"memory {peak_gb:.2f} GB, launches (fwd, dkv, dq) {launches} on "
+          f"memory {peak_gb:.2f} GB, launches (fwd, dkv, dq, delta) "
+          f"{launches} on "
           f"{card}", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -747,6 +803,7 @@ def phase_training(card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = _device_kernels(prof)
+    profile = None
     if not kernels:
         print("[train] device time breakdown: not measured (the profiler "
               "recorded no device events)", flush=True)
@@ -757,12 +814,19 @@ def phase_training(card):
                                + e.time_range.elapsed_us())
         busy = sum(by_name.values())
         flash_us = {n: us for n, us in by_name.items() if "flash_" in n}
+        bwd_us = sum(us for n, us in flash_us.items() if "flash_bwd" in n)
         print(f"[train] profiled step: wall {wall_us / 1e3:.1f} ms, device "
               f"time {busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}, "
               f"{len(kernels)} kernels); flash kernels "
               f"{sum(flash_us.values()) / 1e3:.2f} ms = "
-              f"{sum(flash_us.values()) / busy:.4f} of device time",
-              flush=True)
+              f"{sum(flash_us.values()) / busy:.4f} of device time, of "
+              f"which the backward (Δ, dK/dV, dQ) {bwd_us / 1e3:.2f} ms = "
+              f"{bwd_us / busy:.4f}", flush=True)
+        profile = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                       busy_share=busy / wall_us,
+                       flash_ms=sum(flash_us.values()) / 1e3,
+                       flash_bwd_ms=bwd_us / 1e3,
+                       flash_bwd_share=bwd_us / busy)
         for n, us in sorted(flash_us.items(), key=lambda kv: -kv[1]):
             print(f"[train]   flash {us / 1e3:.3f} ms  {n[:90]}")
         for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
@@ -770,7 +834,7 @@ def phase_training(card):
     del state
     torch.cuda.empty_cache()
     return dict(launches=launches, step_ms=step_ms, tokens_per_s=tokens_per_s,
-                mfu=mfu, peak_gb=peak_gb)
+                mfu=mfu, peak_gb=peak_gb, profile=profile)
 
 
 def phase_small_training():
@@ -828,7 +892,6 @@ def main() -> int:
     train_fwd = results[("max_seq_causal", "bf16")]
     bwd_main = bwd[("train_causal", "bf16")]
     launches = train["launches"]
-    source = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -854,35 +917,64 @@ def main() -> int:
         "dtype": "bfloat16",
         "card": card,
     }]
-    for name, line, part, launched, errs in (
-            ("flash_bwd_dkv", 134, "dkv", launches[1], bwd_main["rel"][1:]),
-            ("flash_bwd_dq", 176, "dq", launches[2], bwd_main["rel"][:1])):
-        absolute = (bwd_main["abs"][1:] if part == "dkv"
-                    else bwd_main["abs"][:1])
-        kernels.append({
+    bwd_full = bwd[("full", "bf16")]
+    source = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
+    for name, replaces, part, launched, errs in (
+            ("flash_bwd_dkv", "ray_tpu/ops/flash.py:134", "dkv", launches[1],
+             slice(1, 3)),
+            ("flash_bwd_dq", "ray_tpu/ops/flash.py:176", "dq", launches[2],
+             slice(0, 1)),
+            ("flash_bwd_delta", "ray_tpu/ops/flash.py:219", "delta",
+             launches[3], None)):
+        ms, dev_ms = bwd_main["times"][part]
+        row = {
             "name": name,
             "route": "cuda",
             "source": source,
-            "replaces": f"ray_tpu/ops/flash.py:{line}",
+            "replaces": replaces,
             "launches": launched,
             "launches_by_path": {"train": launched},
-            "max_abs_err": max(absolute),
-            "max_rel_err": max(errs),
-            "tol": BWD_TOL[torch.bfloat16],
-            "tol_on": "max_rel_err, relative to the gradient's max magnitude",
             "cases_passed": len(bwd),
-            "ms": bwd_main[f"{part}_ms"],
-            "plain_ms": bwd_main["plain_ms"],
-            "plain_computes": "dq, dk and dv together",
-            "bound_ms": bwd_main[f"{part}_bound"][0],
-            "bound_by": bwd_main[f"{part}_bound"][1],
-            "library_ms": bwd_main["library_ms"],
-            "library_computes": "scaled_dot_product_attention backward "
-                                "(dq, dk and dv)",
+            "ms": ms,
+            "device_ms": dev_ms,
+            "bound_ms": bwd_main["bounds"][part][0],
+            "bound_by": bwd_main["bounds"][part][1],
+            "share_of_bound": _share(bwd_main["bounds"][part][0],
+                                     bwd_main["times"][part]),
+            "full_shape": {"ms": bwd_full["times"][part][0],
+                           "device_ms": bwd_full["times"][part][1],
+                           "bound_ms": bwd_full["bounds"][part][0],
+                           "shape": bwd_full["shape"]},
             "shape": bwd_main["shape"],
             "dtype": "bfloat16",
             "card": card,
-        })
+        }
+        if errs is None:
+            row.update({
+                "replaces_what": "XLA's reduction for Delta in _flash_bwd",
+                "max_abs_err": bwd_main["delta_abs"],
+                "max_rel_err": bwd_main["delta_err"],
+                "tol": 1e-5,
+                "tol_on": "max_rel_err, relative to Delta's max magnitude",
+                "plain_ms": bwd_main["delta_plain_ms"],
+                "library_ms": None,
+            })
+        else:
+            row.update({
+                "max_abs_err": max(bwd_main["abs"][errs]),
+                "max_rel_err": max(bwd_main["rel"][errs]),
+                "tol": BWD_TOL[torch.bfloat16],
+                "tol_on": "max_rel_err, relative to the gradient's max "
+                          "magnitude",
+                "plain_ms": bwd_main["plain_ms"],
+                "plain_computes": "dq, dk and dv together",
+                "library_ms": bwd_main["library_ms"],
+                "library_computes": "scaled_dot_product_attention backward "
+                                    "(dq, dk and dv)",
+                "wrapper_ms": bwd_main["times"]["wrapper"][0],
+                "wrapper_device_ms": bwd_main["times"]["wrapper"][1],
+            })
+        kernels.append(row)
     print(json.dumps({"train": train}))
     print(json.dumps({"kernels": kernels}))
     from ray_tpu_torch import device_name

@@ -27,10 +27,10 @@
 //   K is released after Q K^T and V after P V, so two stages keep a copy
 //   one step ahead of the products. For D 128: 2 x 32 KB of Q and 2 x 64 KB
 //   of K and V, 193 KB of dynamic shared memory.
-// - Tensor maps are 4-d over (D, heads, S, B) with each tensor's own byte
-//   strides, so BSHD views (a fused QKV projection, GQA's kv heads) are
-//   read in place; a box is 64 columns (128 bytes) by 128 rows with the
-//   128-byte swizzle, and a D-128 tile is two boxes side by side.
+// - Tensor maps (tma_host.cuh) are 4-d over (D, heads, S, B) with each
+//   tensor's own byte strides, so BSHD views (a fused QKV projection, GQA's
+//   kv heads) are read in place; a box is 64 columns (128 bytes) by 128 rows
+//   with the 128-byte swizzle, and a D-128 tile is two boxes side by side.
 // - S = Q K^T is wgmma m64n128k16 with both operands from shared-memory
 //   descriptors (K-major) that describe the same swizzle. The online
 //   softmax stays in registers in the exp2 domain (scale * log2 e folded
@@ -66,6 +66,7 @@
 
 #include "flash_common.cuh"
 #include "hopper.cuh"
+#include "tma_host.cuh"
 
 namespace {
 
@@ -75,8 +76,6 @@ enum : int {
   kErrBadDtype = -1,
   kErrBadHeadDim = -2,
   kErrGridTooLarge = -3,
-  kErrNoTensorMapEncoder = -4,
-  kErrTensorMap = -5,
 };
 
 struct Params {
@@ -132,16 +131,6 @@ constexpr int kConsumerRegs = 240;
 template <int D>
 constexpr int fwd_smem_bytes() {
   return (2 + 2 * kStages) * kBlockN * D * 2 + 8 * (4 + 4 * kStages) + 1024;
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // O (64 x D) += P V for one 128-row V tile at `v` (kv rows x D, D/64 column
@@ -574,89 +563,8 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ------------------------------------------------------------------------
-// host: tensor maps and launch
+// host: launch (tensor maps from tma_host.cuh)
 // ------------------------------------------------------------------------
-
-// cuTensorMapEncodeTiled is a driver-API function; it is fetched through the
-// runtime, so the library links no libcuda of its own.
-using EncodeTiledFn = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// A 4-d bf16 map over (D, heads, S, B) with the tensor's byte strides, and a
-// box of 64 columns by `rows` rows of one head, swizzled by 128 bytes.
-int encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
-               int B, int64_t sb, int64_t ss, int64_t sh, int rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return kErrNoTensorMapEncoder;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(S),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(ss) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                      const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                      CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
-                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
-
-// encode_map through a small cache: encoding costs microseconds of host
-// time a map, four a launch, while a map depends only on its arguments, and
-// PyTorch's allocator hands the same addresses back call after call. One
-// cache per host thread (ctypes calls run without the interpreter lock).
-int make_map(CUtensorMap* map, const void* ptr, int D, int heads, int S,
-             int B, int64_t sb, int64_t ss, int64_t sh, int rows) {
-  struct Entry {
-    const void* ptr;
-    int64_t key[8];
-    CUtensorMap map;
-  };
-  static thread_local Entry cache[16] = {};  // indexed by 4 hash bits
-  const int64_t key[8] = {D, heads, S, B, sb, ss, sh, rows};
-  const uint64_t h = (reinterpret_cast<uintptr_t>(ptr) ^ rows) *
-                     0x9E3779B97F4A7C15ull;  // Fibonacci hashing
-  Entry& e = cache[h >> 60];
-  bool hit = e.ptr == ptr;
-  for (int i = 0; i < 8 && hit; ++i) hit = e.key[i] == key[i];
-  if (!hit) {
-    int err = encode_map(&e.map, ptr, D, heads, S, B, sb, ss, sh, rows);
-    if (err != 0) {
-      e.ptr = nullptr;
-      return err;
-    }
-    e.ptr = ptr;
-    for (int i = 0; i < 8; ++i) e.key[i] = key[i];
-  }
-  *map = e.map;
-  return 0;
-}
 
 template <int D>
 int launch_bf16(const Params& p, int device, cudaStream_t st) {
@@ -674,15 +582,10 @@ int launch_bf16(const Params& p, int device, cudaStream_t st) {
                    kBlockM / 2);
   if (err != 0) return err;
   constexpr int smem = fwd_smem_bytes<D>();
-  static uint64_t attribute_set = 0;  // one bit per device
-  const uint64_t bit = uint64_t{1} << (device & 63);
-  if (!(attribute_set & bit)) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    attribute_set |= bit;
-  }
+  static uint64_t attribute_set = 0;
+  err = allow_dynamic_smem(flash_fwd_bf16_kernel<D>, smem, device,
+                           attribute_set);
+  if (err != 0) return err;
   // persistent: one CTA per SM (or per work tile, if fewer)
   static int sm_count[64] = {};
   int& sms = sm_count[device & 63];

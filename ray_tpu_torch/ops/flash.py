@@ -6,9 +6,10 @@ Ported from ``ray_tpu/ops/flash.py``:
 - ``_fwd_kernel`` / ``_flash_fwd`` (the Pallas FlashAttention-2 forward)
   becomes ``csrc/flash_fwd.cu``, launched by ``flash_fwd``; its plain
   version is ``flash_attention_plain``.
-- ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` / ``_flash_bwd`` become the two
-  kernels of ``csrc/flash_bwd.cu``, launched by ``flash_bwd``; the plain
-  version is ``flash_attention_bwd_plain``.
+- ``_bwd_dkv_kernel`` and ``_bwd_dq_kernel`` / ``_flash_bwd`` become the
+  dK/dV and dQ kernels of ``csrc/flash_bwd.cu``, and the XLA reduction that
+  gives them Δ becomes that file's Δ pass, all launched by ``flash_bwd``;
+  the plain versions are ``flash_attention_bwd_plain`` and ``bwd_delta``.
 - The ``jax.custom_vjp`` around them becomes ``_FlashAttention``, a
   ``torch.autograd.Function`` that ``flash_attention`` goes through whenever
   an input needs a gradient.
@@ -31,10 +32,11 @@ from ray_tpu_torch._device import require_sm90
 from ray_tpu_torch.ops.attention import NEG_INF, _repeat_kv
 
 # Launches of each CUDA kernel since the last reset (callers set them to 0):
-# the forward, and the backward's dK/dV and dQ kernels.
+# the forward, and the backward's dK/dV, dQ and Δ kernels.
 launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
+bwd_delta_launches = 0
 
 _HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,7 +176,8 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     """Gradients of ``flash_fwd``'s out: q, out, do [B, Sq, H, D], k/v
     [B, Sk, KVH, D], lse [B, H, Sq] f32 (the forward's) -> (dq
     [B, Sq, H, D], dk/dv [B, Sk, KVH, D]). CPU tensors take the plain
-    version; CUDA tensors launch the two kernels of ``csrc/flash_bwd.cu``.
+    version; CUDA tensors launch the Δ pass, then the dK/dV and dQ kernels
+    of ``csrc/flash_bwd.cu``.
 
     Causal attention with Sq > Sk is refused: its first rows see no key, the
     forward gives them O = 0 and LSE ≈ NEG_INF, and exp(s − LSE) would give
@@ -242,7 +245,7 @@ def _check_inputs(q, k, v):
 
 
 def _vector_ready(x):
-    """16-byte vector loads, and the forward's TMA tensor maps, need the last
+    """16-byte vector loads, and the kernels' TMA tensor maps, need the last
     dim contiguous, every other stride a positive multiple of 16 bytes, and
     a 16-byte aligned base."""
     per16 = 16 // x.element_size()
@@ -270,8 +273,14 @@ def _kernel_library(name: str):
             attrs.restype = i32
         else:
             fn, err = lib.rtt_flash_bwd, lib.rtt_flash_bwd_error_string
-            fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 7 + [i64] * 12
+            fn.argtypes = ([i32] + [ptr] * 9 + [i32] * 8 + [i64] * 12
                            + [ctypes.c_float, i32, i32, ptr])
+            delta = lib.rtt_flash_bwd_delta
+            delta.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 6 + [i32, ptr]
+            delta.restype = i32
+            attrs = lib.rtt_flash_bwd_bf16_attributes
+            attrs.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+            attrs.restype = i32
         fn.restype = i32
         err.argtypes = [i32]
         err.restype = ctypes.c_char_p
@@ -280,19 +289,31 @@ def _kernel_library(name: str):
     return lib
 
 
-def fwd_kernel_attributes(head_dim: int) -> dict:
-    """What the bf16 forward kernel for ``head_dim`` was built with (needs
-    the card): registers a thread at launch, local memory a thread (spills)
-    and the dynamic shared memory of a launch, in bytes."""
-    lib = _kernel_library("flash_fwd")
+def _attributes(lib, query, *args) -> dict:
     out = [ctypes.c_int() for _ in range(3)]
-    err = lib.rtt_flash_fwd_bf16_attributes(
-        head_dim, *(ctypes.byref(x) for x in out))
+    err = query(*args, *(ctypes.byref(x) for x in out))
     if err != 0:
         raise RuntimeError(f"cudaFuncGetAttributes failed: "
                            f"{lib.error_string(err).decode()} (code {err})")
     return dict(zip(("registers", "local_bytes", "smem_bytes"),
                     (x.value for x in out)))
+
+
+def fwd_kernel_attributes(head_dim: int) -> dict:
+    """What the bf16 forward kernel for ``head_dim`` was built with (needs
+    the card): registers a thread at launch, local memory a thread (spills)
+    and the dynamic shared memory of a launch, in bytes."""
+    lib = _kernel_library("flash_fwd")
+    return _attributes(lib, lib.rtt_flash_fwd_bf16_attributes, head_dim)
+
+
+def bwd_kernel_attributes(head_dim: int) -> dict:
+    """``fwd_kernel_attributes`` of the bf16 backward kernels for
+    ``head_dim``: {"dkv": {...}, "dq": {...}}."""
+    lib = _kernel_library("flash_bwd")
+    return {name: _attributes(lib, lib.rtt_flash_bwd_bf16_attributes, which,
+                              head_dim)
+            for which, name in enumerate(("dkv", "dq"))}
 
 
 def _raise_on(lib, err: int, what: str):
@@ -333,9 +354,39 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: Optional[float]):
 
 
 def bwd_delta(out, do):
-    """Δ = rowsum(f32(dO) ⊙ f32(O)) as [B, H, Sq] f32, a torch reduction
-    outside the kernels, as the JAX package takes it outside Pallas."""
+    """Plain version of the Δ pass: Δ = rowsum(f32(dO) ⊙ f32(O)) as
+    [B, H, Sq] f32, as ``_flash_bwd`` computes it outside Pallas."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+# The bf16 kernels read LSE and Δ in rows of Sq rounded up to this
+_STAT_ROWS = 64
+
+
+def bwd_preprocess(out, do, lse):
+    """Launch the Δ pass of ``csrc/flash_bwd.cu`` on checked CUDA inputs
+    (out, do [B, Sq, H, D] with 16-byte loadable strides, lse [B, H, Sq]
+    f32 contiguous): one read of O and dO in their own dtype ->
+    (lse_k, delta), both [B, H, R] f32, what the backward kernels read.
+    bf16: R is Sq rounded up to 64, the rows past Sq hold zeros, and lse_k
+    is LSE·log₂e. f32: R is Sq and lse_k is lse. ``delta[..., :Sq]`` is
+    ``bwd_delta(out, do)``."""
+    global bwd_delta_launches
+    b, sq, h, d = out.shape
+    bf16 = out.dtype == torch.bfloat16
+    rows = -(-sq // _STAT_ROWS) * _STAT_ROWS if bf16 else sq
+    delta = torch.empty(b, h, rows, dtype=torch.float32, device=out.device)
+    lse_k = torch.empty_like(delta) if bf16 else lse
+    lib = _kernel_library("flash_bwd")
+    err = lib.rtt_flash_bwd_delta(
+        out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        lse_k.data_ptr() if bf16 else None, out.device.index or 0, b, h, sq,
+        d, rows, *out.stride()[:3], *do.stride()[:3],
+        _DTYPE_CODES[out.dtype],
+        torch.cuda.current_stream(out.device).cuda_stream)
+    _raise_on(lib, err, "flash_bwd_delta")
+    bwd_delta_launches += 1
+    return lse_k, delta
 
 
 def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool,
@@ -354,13 +405,13 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, causal: bool,
                          f"{tuple(lse.shape)} {lse.dtype}")
     if not (out.device == do.device == lse.device == q.device):
         raise ValueError("all inputs must lie on one device")
-    delta = bwd_delta(out, do)
-    q, k, v, do = _aligned(q, k, v, do)
+    q, k, v, out, do = _aligned(q, k, v, out, do)
+    lse_k, delta = bwd_preprocess(out, do, lse.contiguous())
     scale = scale if scale is not None else d ** -0.5
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    args = (q, k, v, do, lse.contiguous(), delta, dq, dk, dv, causal, scale)
+    args = (q, k, v, do, lse_k, delta, dq, dk, dv, causal, scale)
     bwd_dkv(*args)
     bwd_dq(*args)
     return dq, dk, dv
@@ -375,7 +426,8 @@ def _launch_bwd(which: int, q, k, v, do, lse, delta, dq, dk, dv,
         which, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), q.device.index or 0, b, h, hk, sq, sk, d,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3],
+        delta.shape[-1], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *do.stride()[:3],
         scale, int(causal), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(lib, err, ("flash_bwd_dkv", "flash_bwd_dq")[which])
@@ -383,7 +435,8 @@ def _launch_bwd(which: int, q, k, v, do, lse, delta, dq, dk, dv,
 
 def bwd_dkv(q, k, v, do, lse, delta, dq, dk, dv, causal, scale):
     """Launch the dK/dV kernel into ``dk``, ``dv`` (checked inputs, as
-    ``_flash_bwd_cuda`` prepares them)."""
+    ``_flash_bwd_cuda`` prepares them; lse and delta from
+    ``bwd_preprocess``)."""
     global bwd_dkv_launches
     _launch_bwd(0, q, k, v, do, lse, delta, dq, dk, dv, causal, scale)
     bwd_dkv_launches += 1

@@ -4,7 +4,8 @@ against the Pallas TPU kernels and against ``jax.grad``.
 - ``flash_attention_bwd_plain`` is held against
   ``ray_tpu.ops.flash._flash_bwd`` itself (``_bwd_dkv_kernel`` and
   ``_bwd_dq_kernel``), run on the CPU in Pallas interpret mode
-  (``pallas_call`` is wrapped with ``interpret=True`` for the test only).
+  (``pallas_call`` is wrapped with ``interpret=True`` for the test only),
+  and ``bwd_delta`` against the Δ that ``_flash_bwd`` hands its kernels.
 - The autograd Function (``mha(impl="flash")`` on CPU tensors, whose
   backward is ``flash_bwd``) is held against ``jax.grad`` of the JAX ``mha``
   on the same BSHD inputs.
@@ -13,8 +14,8 @@ The CUDA kernels are checked against the plain version on the card by
 ``tests/test_torch_flash_cuda.py`` and ``chip_smoke.py``.
 
 Tolerances at float32: 2e-5 against the interpret-mode kernels (they sum
-over 128-row blocks, the plain version in one product); 2e-4 on gradients
-against ``jax.grad`` (as the slice-1 attention gradient tests).
+over 64- or 128-row blocks, the plain version in one product); 2e-4 on
+gradients against ``jax.grad`` (as the slice-1 attention gradient tests).
 """
 
 import functools
@@ -47,20 +48,27 @@ def _arrays(shapes, seed):
     return [rng.standard_normal(s, np.float32) for s in shapes]
 
 
+# (sq, sk, block): the TPU's 128-row blocks, and the 64-row tiles the CUDA
+# kernels stream (64-row q tiles in dK/dV, kv tiles in dQ) at lengths that
+# divide by 64 but not by 128
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("sq,sk", [(256, 256), (128, 256)])
+@pytest.mark.parametrize("sq,sk,block", [
+    pytest.param(256, 256, 128, id="256-256"),
+    pytest.param(128, 256, 128, id="128-256"),
+    pytest.param(192, 192, 64, id="192-192-block64"),
+    pytest.param(64, 320, 64, id="64-320-block64")])
 def test_plain_bwd_matches_pallas_kernels_in_interpret_mode(
-        interpret_pallas, causal, sq, sk):
+        interpret_pallas, causal, sq, sk, block):
     bh, d = 2, 64
     scale = d ** -0.5
     q, k, v, g = _arrays([(bh, sq, d), (bh, sk, d), (bh, sk, d),
                           (bh, sq, d)], seed=0)
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     out, lse = jflash._flash_fwd(jq, jk, jv, causal=causal, scale=scale,
-                                 block_q=128, block_k=128)
+                                 block_q=block, block_k=block)
     want = jflash._flash_bwd((jq, jk, jv, out, lse), jnp.asarray(g),
-                             causal=causal, scale=scale, block_q=128,
-                             block_k=128)
+                             causal=causal, scale=scale, block_q=block,
+                             block_k=block)
     got = tflash.flash_attention_bwd_plain(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         torch.from_numpy(np.array(out)),
@@ -70,6 +78,45 @@ def test_plain_bwd_matches_pallas_kernels_in_interpret_mode(
         assert t.dtype == torch.float32 and t.shape == j.shape, name
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL,
                                    rtol=TOL, err_msg=name)
+
+
+@pytest.mark.parametrize("b,s,h,d", [(2, 128, 2, 64), (1, 192, 3, 128)])
+def test_bwd_delta_matches_flash_bwd_delta_on_bf16(monkeypatch, b, s, h, d):
+    # Δ as ``_flash_bwd`` computes it outside Pallas (ray_tpu/ops/flash.py,
+    # the sum before its pallas_calls): their sixth operand, broadcast over
+    # 128 lanes. The calls themselves are not run; they return zeros.
+    if jflash.pl is None:
+        pytest.skip("this jax has no pallas")
+    seen = []
+
+    def spy(kernel, *, out_shape, **kw):
+        def call(*operands):
+            seen.append(np.asarray(operands[5])[..., 0])
+            if isinstance(out_shape, (list, tuple)):
+                return [jnp.zeros(o.shape, o.dtype) for o in out_shape]
+            return jnp.zeros(out_shape.shape, out_shape.dtype)
+        return call
+
+    monkeypatch.setattr(jflash.pl, "pallas_call", spy)
+    # bf16 values, exact in both frameworks
+    out, do = (torch.from_numpy(a).bfloat16() for a in _arrays(
+        [(b, s, h, d)] * 2, seed=7))
+
+    def to_jax(x):   # [B, S, H, D] -> [B*H, S, D] bf16
+        x = x.float().transpose(1, 2).reshape(b * h, s, d).numpy()
+        return jnp.asarray(x, dtype=jnp.bfloat16)
+
+    lse = jnp.zeros((b * h, s, 128), jnp.float32)
+    jout, jdo = to_jax(out), to_jax(do)
+    jflash._flash_bwd((jout, jout, jout, jout, lse), jdo, causal=True,
+                      scale=d ** -0.5, block_q=64, block_k=64)
+    assert len(seen) == 2 and np.array_equal(seen[0], seen[1])
+    want = seen[0].reshape(b, h, s)
+    got = tflash.bwd_delta(out, do)
+    assert got.dtype == torch.float32 and got.shape == (b, h, s)
+    # the same exact f32 products, summed in another order
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
 
 
 # (b, sq, sk, h, kvh, d): ragged lengths, Sq < Sk, GQA 4:2

@@ -15,7 +15,8 @@ Backward tolerances, on the largest error of dq, dk and dv relative to that
 gradient's largest magnitude: 1e-4 at float32 (the order of the f32 sums);
 2e-2 at bfloat16 (P and dS are rounded to bf16 in both versions, but from
 f32 values summed in another order, so a few round the other way; the
-outputs are rounded to bf16, 2^-8 of their size).
+outputs are rounded to bf16, 2^-8 of their size). The Δ pass: 1e-5 relative
+to Δ's largest magnitude (the same exact products, summed in another order).
 """
 
 import pytest
@@ -152,17 +153,22 @@ def _rel_err(got, want):
             / want.float().abs().max()).item()
 
 
+def _counts():
+    """Launches so far: the forward, and the backward's dK/dV, dQ and Δ."""
+    return (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches,
+            flash.bwd_delta_launches)
+
+
 @pytest.mark.cuda
 def test_grad_inputs_reach_the_function(cuda_device):
     q, k, v = _qkv(cuda_device, 1, 64, 64, 2, 2, 64, torch.bfloat16)
     q.requires_grad_()
-    counts = (flash.launches, flash.bwd_dkv_launches, flash.bwd_dq_launches)
+    counts = _counts()
     out = flash.flash_attention(q, k, v)
     assert "FlashAttention" in type(out.grad_fn).__name__
     out.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert (flash.launches, flash.bwd_dkv_launches,
-            flash.bwd_dq_launches) == tuple(c + 1 for c in counts)
+    assert _counts() == tuple(c + 1 for c in counts)
     with torch.no_grad():
         o, lse = flash.flash_fwd_plain(q, k, v)
         want, _, _ = flash.flash_bwd_plain(q, k, v, o, lse, 2 * o.float()
@@ -179,27 +185,119 @@ BWD_CASES = [((1, 100, 100, 2, 2, 64), True), ((1, 100, 100, 2, 2, 64), False),
              ((1, 64, 200, 4, 2, 128), True), ((2, 130, 130, 8, 2, 128), True),
              ((2, 256, 256, 4, 4, 128), True),
              ((2, 256, 256, 4, 4, 128), False)]
+# Lengths at the kernels' tile edges (64-row streamed tiles, 128-row owned
+# tiles): Sk in {1, 63, 64, 65, 127, 128, 129}, causal with Sq = Sk at D 128
+# and Sq < Sk at D 64, and without the mask Sq 65 against every Sk (Sq > Sk
+# too); then GQA 2:1 and 4:1 at tile edges
+EDGE_LENGTHS = (1, 63, 64, 65, 127, 128, 129)
+BWD_CASES += [((1, sk, sk, 2, 2, 128), True) for sk in EDGE_LENGTHS]
+BWD_CASES += [((1, max(1, sk - 62), sk, 2, 2, 64), True)
+              for sk in EDGE_LENGTHS]
+BWD_CASES += [((1, 65, sk, 2, 2, 64), False) for sk in EDGE_LENGTHS]
+BWD_CASES += [((1, 63, 129, 4, 2, 128), True),
+              ((2, 129, 129, 8, 2, 64), False),
+              ((1, 127, 128, 8, 2, 128), True),
+              ((1, 200, 257, 8, 2, 128), True)]
+
+
+def _bwd_inputs(dev, shape, dtype, causal):
+    q, k, v = _qkv(dev, *shape, dtype)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=causal)
+    return q, k, v, out, lse, do
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,causal", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernels_match_plain(cuda_device, shape, causal, dtype):
-    q, k, v = _qkv(cuda_device, *shape, dtype)
-    gen = torch.Generator(device=cuda_device).manual_seed(9)
-    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
-    before = (flash.bwd_dkv_launches, flash.bwd_dq_launches)
+    q, k, v, out, lse, do = _bwd_inputs(cuda_device, shape, dtype, causal)
+    before = _counts()
     with torch.inference_mode():
-        out, lse = flash.flash_fwd(q, k, v, causal=causal)
         got = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
         torch.cuda.synchronize()
         want = flash.flash_bwd_plain(q, k, v, out, lse, do, causal=causal)
-    assert (flash.bwd_dkv_launches, flash.bwd_dq_launches) == \
-        (before[0] + 1, before[1] + 1)
+    assert _counts() == (before[0], before[1] + 1, before[2] + 1,
+                         before[3] + 1)
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == dtype, name
         assert torch.isfinite(g).all(), name
+        if shape[2] == 1 and name != "dv":
+            # one key: every row's softmax is constant, so dq and dk are
+            # exactly 0 and both versions hold rounding noise of dP - Δ
+            # there; no relative error exists. Held to the tolerance
+            # relative to dv's magnitude instead.
+            scale = want[2].float().abs().max()
+            assert g.float().abs().max() <= BWD_TOL[dtype] * scale, name
+            continue
         assert _rel_err(g, w) <= BWD_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,d,causal", [(130, 128, True), (300, 64, False),
+                                        (1000, 128, True)])
+def test_bwd_strided_inputs_match_plain(cuda_device, s, d, causal):
+    # q, k, v as slices of one fused [B, S, 3, H, D] projection: the tensor
+    # maps follow the strides, no copy is made
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    qkv = torch.randn(2, s, 3, 4, d, generator=gen,
+                      device=cuda_device).bfloat16()
+    q, k, v = qkv.unbind(2)
+    do = torch.randn(2, s, 4, d, generator=gen, device=cuda_device).bfloat16()
+    assert not q.is_contiguous() and flash._vector_ready(q)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=causal)
+        got = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+        want = flash.flash_bwd_plain(q, k, v, out, lse, do, causal=causal)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g, w) <= BWD_TOL[torch.bfloat16], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,causal", [((2, 300, 300, 4, 2, 128), True),
+                                          ((1, 512, 512, 4, 4, 64), False),
+                                          ((1, 1024, 1024, 8, 8, 128), True)])
+def test_bwd_is_bitwise_deterministic(cuda_device, shape, causal):
+    # no atomics: two calls on the same inputs give the same bits, which a
+    # race on the shared-memory ring would break
+    q, k, v, out, lse, do = _bwd_inputs(cuda_device, shape, torch.bfloat16,
+                                        causal)
+    with torch.inference_mode():
+        first = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+        second = flash.flash_bwd(q, k, v, out, lse, do, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(2, 100, 4, 128), (1, 129, 2, 64),
+                                     (1, 64, 3, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_delta_pass_matches_plain(cuda_device, b, s, h, d, dtype):
+    # Δ in f32 from one read of O and dO, against bwd_delta's f32 copies:
+    # the same products, summed in another order (relative 1e-5). bf16 rows
+    # are padded to a multiple of 64 with zeros, and carry LSE·log2 e
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    out, do = (torch.randn(b, s, h, d, generator=gen,
+                           device=cuda_device).to(dtype) for _ in range(2))
+    lse = torch.randn(b, h, s, generator=gen, device=cuda_device)
+    before = flash.bwd_delta_launches
+    with torch.inference_mode():
+        lse_k, delta = flash.bwd_preprocess(out, do, lse)
+        want = flash.bwd_delta(out, do)
+    assert flash.bwd_delta_launches == before + 1
+    rows = -(-s // 64) * 64 if dtype == torch.bfloat16 else s
+    assert delta.shape == lse_k.shape == (b, h, rows)
+    assert _rel_err(delta[..., :s], want) <= 1e-5
+    assert bool((delta[..., s:] == 0).all())
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(lse_k[..., :s], lse * 1.4426950408889634,
+                                   rtol=1e-6, atol=0)
+        assert bool((lse_k[..., s:] == 0).all())
+    else:
+        assert lse_k is lse
 
 
 @pytest.mark.cuda
@@ -244,15 +342,16 @@ def test_prefill_launches_kernel_once_per_layer(cuda_device):
 @pytest.mark.cuda
 def test_train_step_launches_each_kernel_per_layer(cuda_device):
     # remat: the forward kernel runs once per layer in the forward and once
-    # more in the recompute; each backward kernel once per layer
+    # more in the recompute; each backward kernel (Δ, dK/dV, dQ) once per
+    # layer
     cfg = TransformerConfig(vocab_size=256, d_model=256, n_layers=3,
                             n_heads=2, n_kv_heads=1, attn_impl="flash")
     init_fn, step_fn, place = make_lm_train_step(cfg)
     state = init_fn(torch.Generator(device=cuda_device).manual_seed(0))
     batch = place({"tokens": torch.randint(0, 256, (2, 70))})
     flash.launches = flash.bwd_dkv_launches = flash.bwd_dq_launches = 0
+    flash.bwd_delta_launches = 0
     state, metrics = step_fn(state, batch)
     torch.cuda.synchronize()
-    assert (flash.launches, flash.bwd_dkv_launches,
-            flash.bwd_dq_launches) == (6, 3, 3)
+    assert _counts() == (6, 3, 3, 3)
     assert torch.isfinite(metrics["loss"]) and metrics["step"] == 1

@@ -118,10 +118,11 @@ def test_kernel_source_calls_no_library_attention():
     # the CUDA runtime and bf16 headers, the driver API's header for the
     # CUtensorMap type of TMA, and the port's own shared headers
     allowed = {"<cuda_bf16.h>", "<cuda_runtime.h>", "<stdint.h>",
-               "<cuda.h>", '"flash_common.cuh"', '"hopper.cuh"'}
+               "<cuda.h>", '"flash_common.cuh"', '"hopper.cuh"',
+               '"tma_host.cuh"'}
     names = {"flash_fwd.cu": ["_fwd_kernel"],   # the TPU kernels replaced
              "flash_bwd.cu": ["_bwd_dkv_kernel", "_bwd_dq_kernel"],
-             "flash_common.cuh": [], "hopper.cuh": []}
+             "flash_common.cuh": [], "hopper.cuh": [], "tma_host.cuh": []}
     assert sorted(p.name for p in _build.SRC_DIR.iterdir()) == sorted(names)
     for name, tpu_kernels in names.items():
         src = (_build.SRC_DIR / name).read_text()
