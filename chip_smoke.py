@@ -16,28 +16,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    bf16 and f32, over the serving path's prefill shape, the flagship's
    max_seq, a ragged length, Sq < Sk, causal Sq > Sk (whose rows that see
    no key must hold exactly O = 0 and LSE = -1e30), q, k and v as strided
-   views of one fused [B, S, 3, H, D] tensor, GQA and head_dim 64. O and
-   LSE errors are printed beside their tolerances, with the kernel's time
-   (CUDA events around the wrapper, and the kernel's own device time from
+   views of one fused [B, S, 3, H, D] tensor, GQA, head_dim 64 and the ViT
+   training shape (B 128, S 197, 6 heads of 64, not causal). O and LSE
+   errors are printed beside their tolerances, with the kernel's time (CUDA
+   events around the wrapper, and the kernel's own device time from
    torch.profiler), the plain version's, the least time the card could take
    (the bound) and, as a yardstick only, torch's
    scaled_dot_product_attention (the port never calls it).
+2b. Backward kernels against their plain version: the Δ pass, dK/dV and dQ
+   kernels (csrc/flash_bwd.cu) and ``flash_bwd_plain`` on the same card
+   tensors with a random dO, at bf16 and f32, over the flagship's training
+   shape, a non-causal case, a ragged length, Sq < Sk, GQA, head_dim 64 and
+   the ViT training shape; errors relative to each gradient's largest
+   magnitude, a second call that must give the same bits, each kernel's
+   time (CUDA events and profiler device time) and share of its bound, the
+   whole wrapper's time, the plain version's, the bound and, as a yardstick
+   only, the backward of scaled_dot_product_attention.
 3. Serving at full width: the flagship LM (vocab 32768, d_model 2048, 10
    layers, 16 heads, head_dim 128, d_ff 8192, tied embeddings; random
    weights from a seed) answers a batch of 8 prompts of 128 tokens with 256
    greedy tokens through ``generate``. The kernel must launch once per layer
    (the prefill). The prefill's last-position logits are held against the
-   plain attention path, and a small model's logits on the card against the
-   CPU.
-2b. Backward kernels against their plain version: the Δ pass, dK/dV and dQ
-   kernels (csrc/flash_bwd.cu) and ``flash_bwd_plain`` on the same card
-   tensors with a random dO, at bf16 and f32, over the flagship's training
-   shape, a non-causal case, a ragged length, Sq < Sk, GQA and head_dim 64;
-   errors relative to each gradient's largest magnitude, a second call that
-   must give the same bits, each kernel's time (CUDA events and profiler
-   device time) and share of its bound, the whole wrapper's time, the plain
-   version's, the bound and, as a yardstick only, the backward of
-   scaled_dot_product_attention.
+   plain attention path; time to first token, decode ms a step, and the
+   card's busy share and kernels a decode step (torch.profiler). Then a
+   small model's logits on the card against the CPU.
 4. Long prefill: batch 2 at S = 2048 (max_seq) through the kernel, against
    the plain path.
 5. Training at full width: the flagship (bench.py's bench_lm configuration,
@@ -46,11 +48,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernel 2 x n_layers times (forward and remat recompute) and each backward
    kernel (Δ, dK/dV, dQ) n_layers times, with finite metrics and a falling
    loss; the first step is held against the plain attention path. Step
-   time, tokens/s, MFU, peak memory and the flash kernels' (and the
-   backward's) share of the step's device time.
+   time, tokens/s, MFU, peak memory, and one profiled step's device time by
+   kernel class (flash kernels, cuBLAS products, AdamW, element-wise).
 6. A small f32 model takes one training step on the card (the kernels) and
    one on the CPU (the plain versions): loss, grad_norm and every updated
    parameter agree.
+7. flagship-MoE serving: phase 3 with 4 experts, top-2, in every layer
+   (2,248,271,872 parameters), routing dropless at inference. Routing flips
+   between the kernel and the plain path (a token whose top-2 gates are
+   within bf16 rounding) are counted; rows whose last position kept its
+   experts are held to the logit tolerance. Also the MoE layer's device
+   time at the decode shape, timed alone, against a decode step's.
+8. flagship-MoE training: phase 5 with the same experts (capacity factor
+   1.25), the routing flips of the first step counted, and the MoE layer's
+   routing, dispatch, expert and combine products timed alone at one
+   layer's training shape.
+9. ViT training: ``ViTConfig()``'s defaults (224² images, patch 16, 6
+   layers, 6 heads of 64, S 197, bidirectional, remat) at batch 128 on
+   seeded random images: each step must launch the forward kernel 12 times
+   and each backward kernel 6 times, with a falling loss; step time,
+   images/s, peak memory and one profiled step.
+10. A small f32 MoE LM and a small ViT on the card against the CPU: logits
+   and one training step.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -59,6 +78,7 @@ Without a CUDA card the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -97,7 +117,11 @@ BWD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 # attention path, both at bf16: the loss (~ln 32768 = 10.4 at random
 # weights) is a mean over 16k tokens, so the per-logit drift of a few bf16
 # ulps averages out to well under 1e-2; the gradient norm sums bf16 products
-# of every layer, 2% relative.
+# of every layer, 2% relative. The same holds for flagship-MoE: a token whose
+# top-2 flips between the paths (router logits within bf16 rounding of a
+# tie) carries another hidden state into the later layers, so flips compound
+# with depth, but each changes its own loss term by a random sign and the
+# mean over 16k tokens stays far inside 1e-2.
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_GNORM_RTOL = 2e-2
 
@@ -255,6 +279,7 @@ CASES = [
     ("fused_qkv_view", (2, 1000, 1000, 16, 16, 128), True),
     ("gqa", (2, 512, 512, 16, 4, 128), True),
     ("head_dim_64", (2, 777, 777, 8, 8, 64), True),
+    ("vit_train", (128, 197, 197, 6, 6, 64), False),
 ]
 # cases whose q, k and v are strided views of one [B, S, 3, H, D] tensor
 FUSED = {"fused_qkv_view"}
@@ -361,6 +386,7 @@ BWD_CASES = [
     ("sq_lt_sk", (2, 300, 1000, 16, 16, 128), True),
     ("gqa", (2, 512, 512, 16, 4, 128), True),
     ("head_dim_64", (2, 777, 777, 8, 8, 64), True),
+    ("vit_train", (128, 197, 197, 6, 6, 64), False),
 ]
 
 
@@ -504,7 +530,7 @@ def phase_backward_checks():
 
 
 # ---------------------------------------------------------------------------
-# phases 3 and 4
+# phases 3, 4 and 7
 # ---------------------------------------------------------------------------
 
 def flagship_cfg(**kw):
@@ -526,52 +552,111 @@ def _prefill_logits(params, prompt, cfg, max_len):
     return logits
 
 
-def phase_serving(card):
+def moe_cfg(**kw):
+    """flagship-MoE: the flagship's widths and depth with 4 experts, top-2
+    (the repo's own MoE setting, tests/test_models_train_step.py)."""
+    return flagship_cfg(num_experts=4, expert_top_k=2, **kw)
+
+
+@contextlib.contextmanager
+def _recorded_routing():
+    """Within the block, every call of the MoE layer also records its
+    tokens' top-k experts, sorted, as [B, S, k] on the host in call order
+    (no flash kernel runs in the recording)."""
+    from ray_tpu_torch.models import moe
+    apply, calls = moe.moe_apply, []
+
+    def recording(cfg, moe_params, h, **kw):
+        with torch.no_grad():
+            logits = torch.einsum("bsd,de->bse", h,
+                                  moe_params["router"].to(h.dtype))
+            top = torch.topk(logits.float().softmax(-1), cfg.expert_top_k,
+                             dim=-1).indices
+            calls.append(top.sort(-1).values.cpu())
+        return apply(cfg, moe_params, h, **kw)
+
+    moe.moe_apply = recording
+    try:
+        yield calls
+    finally:
+        moe.moe_apply = apply
+
+
+def _routing_flips(got, want, layers):
+    """[L, B, S] bool: where the first ``layers`` recorded calls of two runs
+    chose different top-k experts."""
+    return torch.stack([(a != b).any(-1) for a, b in
+                        zip(got[:layers], want[:layers])])
+
+
+def phase_serving(card, cfg, tag, seed):
+    """Serve 8 prompts of 128 tokens with 256 greedy tokens each through
+    ``generate``; ``tag`` names the path in the output and the counts."""
     from ray_tpu_torch.models import generate, transformer_init
     from ray_tpu_torch.models import transformer_num_params
-    from ray_tpu_torch.ops import flash
-    cfg = flagship_cfg()
     batch, prompt_len, new = 8, 128, 256
-    params = transformer_init(torch.Generator(device="cuda").manual_seed(0),
-                              cfg)
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+    params = transformer_init(torch.Generator(device="cuda").manual_seed(
+        seed), cfg)
+    prompt = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (batch, prompt_len))).cuda()
-    print(f"[serve] flagship params={transformer_num_params(cfg)} "
+    print(f"[{tag}] params={transformer_num_params(cfg)} "
+          f"experts={cfg.num_experts} top_k={cfg.expert_top_k} "
           f"batch={batch} prompt={prompt_len} new={new}", flush=True)
     generate(params, prompt, cfg, max_new_tokens=4)   # warm-up
     torch.cuda.synchronize()
 
-    flash.launches = 0
+    _reset_launch_counts()
     t0 = time.perf_counter()
     tokens = generate(params, prompt, cfg, max_new_tokens=new)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = flash.launches
-    check(launches == cfg.n_layers,
-          f"flash kernel launched {launches} times, want {cfg.n_layers}")
+    launches = _launch_counts()
+    check(launches == (cfg.n_layers, 0, 0, 0),
+          f"{tag}: kernels launched {launches} times (fwd, dkv, dq, delta), "
+          f"want ({cfg.n_layers}, 0, 0, 0)")
     check(tokens.shape == (batch, new), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
           "token out of range")
-    print(f"[serve] generate: {batch * new / seconds:.1f} tokens/s "
+    tokens_per_s = batch * new / seconds
+    print(f"[{tag}] generate: {tokens_per_s:.1f} tokens/s "
           f"({seconds:.3f} s for {batch}x{new} greedy tokens; "
-          f"flash launches={launches}) on {card}", flush=True)
+          f"flash launches={launches[0]}) on {card}", flush=True)
 
-    kernel = _prefill_logits(params, prompt, cfg, prompt_len + new)
-    plain = _prefill_logits(params, prompt,
-                            dataclasses.replace(cfg, attn_impl="reference"),
-                            prompt_len + new)
+    plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    with _recorded_routing() as kernel_routes:
+        kernel = _prefill_logits(params, prompt, cfg, prompt_len + new)
+    with _recorded_routing() as plain_routes:
+        plain = _prefill_logits(params, prompt, plain_cfg, prompt_len + new)
     check(torch.isfinite(kernel).all().item(), "non-finite prefill logits")
-    diff = (kernel - plain).abs().max().item()
+    row_diff = (kernel - plain).abs().amax(-1)
     agree = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
-    print(f"[serve] prefill logits kernel vs plain path: max_abs_diff="
-          f"{diff:.4e} (tol {LOGIT_TOL_BF16}), logit std="
-          f"{plain.std().item():.3f}, first-token agreement={agree:.3f}",
-          flush=True)
+    checked = torch.ones(batch, dtype=torch.bool)
+    flips = ""
+    if cfg.num_experts:
+        # A token whose top-k differs between the paths runs other experts,
+        # which moves its own logits by O(1): a bf16 rounding flip, not a
+        # fault. Flips at other positions reach the last one only through
+        # attention, diluted over the prompt, so rows whose last position
+        # kept its experts in every layer are held to the tolerance.
+        f = _routing_flips(kernel_routes, plain_routes, cfg.n_layers)
+        checked = ~f[:, :, -1].any(0)
+        flips = (f" routing flips (token-layers whose top-{cfg.expert_top_k}"
+                 f" differs) {int(f.sum())} of {f.numel()}, rows checked "
+                 f"{int(checked.sum())} of {batch} (the rest flipped at the "
+                 f"last position)")
+        check(bool(checked.any()), "every row's last position flipped")
+    diff = row_diff[checked.cuda()].max().item()
+    print(f"[{tag}] prefill logits kernel vs plain path: max_abs_diff="
+          f"{diff:.4e} (tol {LOGIT_TOL_BF16}; all rows "
+          f"{row_diff.max().item():.4e}), logit std="
+          f"{plain.std().item():.3f}, first-token agreement={agree:.3f}"
+          f"{flips}", flush=True)
     check(diff <= LOGIT_TOL_BF16, "prefill logits: kernel path disagrees")
-    _serving_breakdown(params, prompt, cfg, prompt_len + new)
+    breakdown = _serving_breakdown(params, prompt, cfg, prompt_len + new, tag)
     del params
     torch.cuda.empty_cache()
-    return launches, batch * new / seconds
+    return dict(launches=launches[0], tokens_per_s=tokens_per_s,
+                **breakdown)
 
 
 def _device_kernels(prof):
@@ -582,10 +667,12 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
-def _serving_breakdown(params, prompt, cfg, max_len, steps=16):
+def _serving_breakdown(params, prompt, cfg, max_len, tag, steps=16):
     """Where a request's time goes: prefill against decode steps (host clock
     around work that ends in a synchronize), and the card's busy share over
-    decode steps (torch.profiler's kernel intervals over the wall time)."""
+    decode steps (torch.profiler's kernel intervals over the wall time).
+    With experts, also the MoE layer's device time at the decode shape,
+    timed alone (its routing, then its products) against a step's."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.models import decode_step, prefill
@@ -617,25 +704,59 @@ def _serving_breakdown(params, prompt, cfg, max_len, steps=16):
             t0 = time.perf_counter()
             run(steps)
             wall_us = (time.perf_counter() - t0) * 1e6
+        moe = _moe_decode_ms(p16, prompt.shape[0], cfg) \
+            if cfg.num_experts else None
     kernels = _device_kernels(prof)
-    print(f"[serve] prefill {prefill_ms:.2f} ms (batch {prompt.shape[0]} x "
-          f"{prompt.shape[1]}), decode {step_ms:.3f} ms/step "
-          f"({prompt.shape[0] / step_ms * 1e3:.1f} tokens/s in steady "
-          f"decode)", flush=True)
+    print(f"[{tag}] prefill (time to first token) {prefill_ms:.2f} ms "
+          f"(batch {prompt.shape[0]} x {prompt.shape[1]}), decode "
+          f"{step_ms:.3f} ms/step ({prompt.shape[0] / step_ms * 1e3:.1f} "
+          f"tokens/s in steady decode)", flush=True)
+    out = dict(prefill_ms=prefill_ms, decode_step_ms=step_ms)
     if not kernels:
-        print("[serve] decode device busy share: not measured (the profiler "
-              "recorded no device events)", flush=True)
-        return
+        print(f"[{tag}] decode device busy share: not measured (the "
+              f"profiler recorded no device events)", flush=True)
+        return out
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[serve] decode device busy share {busy_us / wall_us:.3f} over "
+    out.update(busy_share=busy_us / wall_us, kernels_per_step=len(kernels)
+               / steps, decode_device_ms=busy_us / steps / 1e3)
+    print(f"[{tag}] decode device busy share {busy_us / wall_us:.3f} over "
           f"{steps} steps ({len(kernels) / steps:.0f} kernels/step, "
           f"{busy_us / steps / 1e3:.3f} ms device time/step)", flush=True)
     for name, us in top:
-        print(f"[serve]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
+        print(f"[{tag}]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
+    if moe is not None:
+        step_dev = busy_us / steps / 1e3
+        layer_ms, route_ms = moe
+        out.update(moe_ms=layer_ms * cfg.n_layers,
+                   moe_share=layer_ms * cfg.n_layers / step_dev,
+                   moe_products_share=(layer_ms - route_ms) * cfg.n_layers
+                   / step_dev)
+        print(f"[{tag}] MoE layer at the decode shape, timed alone (device "
+              f"time), x {cfg.n_layers} layers: {layer_ms * cfg.n_layers:.3f}"
+              f" ms/step = {out['moe_share']:.3f} of a decode step's device "
+              f"time; of which the routing {route_ms * cfg.n_layers:.3f} ms "
+              f"and the dispatch, expert and combine einsums "
+              f"{(layer_ms - route_ms) * cfg.n_layers:.3f} ms = "
+              f"{out['moe_products_share']:.3f}", flush=True)
+    return out
+
+
+def _moe_decode_ms(p16, batch, cfg):
+    """Device ms of one MoE layer (layer 0's cast weights) on a decode
+    step's input [B, 1, D] under the inference config, and of its routing
+    alone."""
+    from ray_tpu_torch.models import moe
+    from ray_tpu_torch.models.generate import _inference_cfg
+    icfg = _inference_cfg(cfg)
+    layer = {k: v[0] for k, v in p16["layers"]["moe"].items()}
+    h = torch.randn(batch, 1, cfg.d_model, device="cuda").to(cfg.dtype)
+    layer_ms = device_ms(lambda: moe.moe_apply(icfg, layer, h))
+    route_ms = device_ms(lambda: moe.route(icfg, layer["router"], h))
+    return layer_ms or float("nan"), route_ms or float("nan")
 
 
 def _to_card(tree):
@@ -698,7 +819,7 @@ def phase_long_prefill():
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6
+# phases 5, 6 and 8
 # ---------------------------------------------------------------------------
 
 def _launch_counts():
@@ -714,23 +835,129 @@ def _reset_launch_counts():
 
 
 def _first_step(cfg, tokens, seed):
-    """Loss and grad_norm of one training step from seeded weights."""
+    """Loss and grad_norm of one training step from seeded weights, and the
+    routing its forward recorded (empty without experts)."""
     from ray_tpu_torch.train import make_lm_train_step
     init_fn, step_fn, place = make_lm_train_step(cfg)
     state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
-    _, metrics = step_fn(state, place({"tokens": tokens}))
-    return metrics["loss"].item(), metrics["grad_norm"].item()
+    with _recorded_routing() as routes:
+        _, metrics = step_fn(state, place({"tokens": tokens}))
+    return metrics["loss"].item(), metrics["grad_norm"].item(), routes
 
 
-def phase_training(card):
+def _kernel_class(name):
+    """Which part of a training step a kernel belongs to, by its name."""
+    if "flash_" in name:
+        return "flash"
+    if "multi_tensor_apply" in name:     # AdamW's foreach updates
+        return "adamw"
+    if any(t in name.lower() for t in ("gemm", "sm90_", "xmma", "cutlass",
+                                       "nvjet", "cublas")):
+        return "products"
+    return "elementwise"
+
+
+def _profile_step(step_fn, state, data, tag):
+    """One profiled training step: its kernels' device time by class (the
+    flash kernels, AdamW, the cuBLAS products, and the element-wise and
+    reduction kernels), against the wall time."""
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, data)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = _device_kernels(prof)
+    if not kernels:
+        print(f"[{tag}] device time breakdown: not measured (the profiler "
+              f"recorded no device events)", flush=True)
+        return state, None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    by_class = {}
+    for n, us in by_name.items():
+        by_class[_kernel_class(n)] = by_class.get(_kernel_class(n), 0.0) + us
+    flash_us = {n: us for n, us in by_name.items() if "flash_" in n}
+    bwd_us = sum(us for n, us in flash_us.items() if "flash_bwd" in n)
+    print(f"[{tag}] profiled step: wall {wall_us / 1e3:.1f} ms, device "
+          f"time {busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}, "
+          f"{len(kernels)} kernels); " + ", ".join(
+              f"{c} {by_class.get(c, 0.0) / 1e3:.2f} ms = "
+              f"{by_class.get(c, 0.0) / busy:.4f}"
+              for c in ("flash", "products", "adamw", "elementwise"))
+          + f"; the flash backward (Δ, dK/dV, dQ) {bwd_us / 1e3:.2f} ms = "
+          f"{bwd_us / busy:.4f}", flush=True)
+    for n, us in sorted(flash_us.items(), key=lambda kv: -kv[1]):
+        print(f"[{tag}]   flash {us / 1e3:.3f} ms  {n[:90]}")
+    for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"[{tag}]   top {us / 1e3:.3f} ms  {n[:90]}")
+    return state, dict(
+        wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+        busy_share=busy / wall_us, flash_ms=sum(flash_us.values()) / 1e3,
+        flash_bwd_ms=bwd_us / 1e3, flash_bwd_share=bwd_us / busy,
+        by_class_ms={c: us / 1e3 for c, us in by_class.items()})
 
+
+def _moe_piece_ms(cfg, moe_params, b, s):
+    """Milliseconds (CUDA events) of the MoE layer's pieces at one layer's
+    training shape [B, S, D], timed alone: the forward, and the forward
+    with its backward, of the routing (router product, softmax, top-k
+    loop), the dispatch product, the expert products (SwiGLU) and the
+    combine product. Under remat a step runs each piece's forward twice and
+    its backward once per layer."""
+    from ray_tpu_torch.models import moe
+    dt = cfg.dtype
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    leaf = {n: moe_params[n].detach().to(dt).requires_grad_()
+            for n in ("router", "w1", "w3", "w2")}
+    h = torch.randn(b, s, cfg.d_model, generator=gen,
+                    device="cuda").to(dt).requires_grad_()
+    with torch.no_grad():
+        _, dispatch, combine = moe.route(cfg, leaf["router"], h)
+        xs = torch.einsum("bsec,bsd->becd", dispatch.to(dt), h)
+    xs.requires_grad_()
+    ys = torch.randn_like(xs).requires_grad_()
+    combine.requires_grad_()
+
+    def experts():
+        gate = torch.nn.functional.silu(
+            torch.einsum("becd,edf->becf", xs, leaf["w1"]))
+        up = torch.einsum("becd,edf->becf", xs, leaf["w3"])
+        return torch.einsum("becf,efd->becd", gate * up, leaf["w2"])
+
+    pieces = {
+        "routing": (lambda: moe.route(cfg, leaf["router"], h)[2],
+                    (leaf["router"], h)),
+        "dispatch": (lambda: torch.einsum("bsec,bsd->becd", dispatch.to(dt),
+                                          h), (h,)),
+        "experts": (experts, (xs, leaf["w1"], leaf["w3"], leaf["w2"])),
+        "combine": (lambda: torch.einsum("bsec,becd->bsd", combine.to(dt),
+                                         ys), (combine, ys)),
+    }
+    out = {}
+    for name, (fn, inputs) in pieces.items():
+        with torch.no_grad():
+            grad = torch.randn_like(fn())
+        fwd = cuda_ms(lambda: fn(), iters=3, warmup=1)
+        both = cuda_ms(lambda: torch.autograd.grad(fn(), inputs, grad),
+                       iters=3, warmup=1)
+        out[name] = (fwd, both)
+        del grad
+    return out
+
+
+def phase_training(card, cfg, tag, seed):
+    """Train at batch 8 x 2048 with remat: 2 warm-up steps counted step by
+    step, the first held against the plain attention path, then 5 timed
+    steps and one profiled step."""
     from ray_tpu_torch.models import transformer_num_params
     from ray_tpu_torch.train import make_lm_train_step
-    cfg = flagship_cfg(remat=True)     # bench.py:134-137, attn_impl auto
-    batch, seq, seed = 8, cfg.max_seq, 3
-    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size,
-                                               (batch, seq))
+    batch, seq = 8, cfg.max_seq
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (batch, seq))
     n_params = transformer_num_params(cfg)
     L = cfg.n_layers
     per_step = (2 * L, L, L, L)   # forward + remat recompute, dK/dV, dQ, Δ
@@ -743,27 +970,41 @@ def phase_training(card):
     init_fn, step_fn, place = make_lm_train_step(cfg)
     state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
     data = place({"tokens": tokens})
-    print(f"[train] flagship params={n_params} batch={batch} seq={seq} "
+    print(f"[{tag}] params={n_params} experts={cfg.num_experts} "
+          f"top_k={cfg.expert_top_k} batch={batch} seq={seq} "
           f"remat={cfg.remat} attn_impl={cfg.attn_impl}", flush=True)
     losses, gnorms = [], []
-    for _ in range(2):                  # warm-up, counted step by step
+    for i in range(2):                  # warm-up, counted step by step
         _reset_launch_counts()
-        state, metrics = step_fn(state, data)
+        with _recorded_routing() as routes:
+            state, metrics = step_fn(state, data)
         losses.append(metrics["loss"].item())
         gnorms.append(metrics["grad_norm"].item())
         check(_launch_counts() == per_step,
               f"a training step launched {_launch_counts()}, want "
               f"{per_step} (forward, dK/dV, dQ, Δ)")
-    check(abs(losses[0] - plain[0]) <= TRAIN_LOSS_TOL
-          and abs(gnorms[0] - plain[1]) <= TRAIN_GNORM_RTOL * plain[1],
-          f"first step: kernel path loss {losses[0]}, grad_norm "
-          f"{gnorms[0]}; plain path {plain}")
-    print(f"[train] first step kernel path vs plain attention path: loss "
+        if i == 0:
+            first_routes = routes
+    flips = ""
+    if cfg.num_experts:
+        # at bf16 a token whose top-k gates are within rounding of each
+        # other may choose another expert on one path: expected noise
+        f = _routing_flips(first_routes, plain[2], L)
+        flips = (f", tokens whose top-{cfg.expert_top_k} differs between "
+                 f"the paths {int(f.any(0).sum())} of {batch * seq} "
+                 f"(token-layers {int(f.sum())} of {f.numel()}; by layer "
+                 f"{f.sum((1, 2)).tolist()})")
+    print(f"[{tag}] first step kernel path vs plain attention path: loss "
           f"{losses[0]:.6f} vs {plain[0]:.6f} (diff "
           f"{abs(losses[0] - plain[0]):.3e}, tol {TRAIN_LOSS_TOL}), "
           f"grad_norm {gnorms[0]:.6f} vs {plain[1]:.6f} (rel diff "
           f"{abs(gnorms[0] - plain[1]) / plain[1]:.3e}, tol "
-          f"{TRAIN_GNORM_RTOL})", flush=True)
+          f"{TRAIN_GNORM_RTOL}){flips}", flush=True)
+    check(abs(losses[0] - plain[0]) <= TRAIN_LOSS_TOL
+          and abs(gnorms[0] - plain[1]) <= TRAIN_GNORM_RTOL * plain[1],
+          f"first step: kernel path loss {losses[0]}, grad_norm "
+          f"{gnorms[0]}; plain path {plain[:2]}")
+    del plain, first_routes, routes
 
     steps = 5
     _reset_launch_counts()
@@ -784,78 +1025,55 @@ def phase_training(card):
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
     step_ms = seconds / steps * 1e3
     tokens_per_s = batch * seq * steps / seconds
-    flops_per_token = 6 * n_params + 12 * L * cfg.d_model * seq
-    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[train] losses {[round(x, 4) for x in losses]} grad_norms "
+    mfu, mfu_text = None, "MFU not stated (6N counts every weight once)"
+    if not cfg.num_experts:
+        flops_per_token = 6 * n_params + 12 * L * cfg.d_model * seq
+        mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+        mfu_text = (f"MFU {mfu:.4f} (6N + 12LdS = {flops_per_token:.4e} "
+                    f"flop/token against 989 TFLOP/s)")
+    print(f"[{tag}] losses {[round(x, 4) for x in losses]} grad_norms "
           f"{[round(x, 4) for x in gnorms]}", flush=True)
-    print(f"[train] {steps} timed steps: {step_ms:.1f} ms/step, "
-          f"{tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} (6N + 12LdS = "
-          f"{flops_per_token:.4e} flop/token against 989 TFLOP/s), peak "
-          f"memory {peak_gb:.2f} GB, launches (fwd, dkv, dq, delta) "
-          f"{launches} on "
+    print(f"[{tag}] {steps} timed steps: {step_ms:.1f} ms/step, "
+          f"{tokens_per_s:.0f} tokens/s, {mfu_text}, peak memory "
+          f"{peak_gb:.2f} GB, launches (fwd, dkv, dq, delta) {launches} on "
           f"{card}", flush=True)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, data)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = _device_kernels(prof)
-    profile = None
-    if not kernels:
-        print("[train] device time breakdown: not measured (the profiler "
-              "recorded no device events)", flush=True)
+    state, profile = _profile_step(step_fn, state, data, tag)
+    pieces = None
+    if cfg.num_experts:
+        layer0 = {k: v[0].detach().clone()
+                  for k, v in state.params["layers"]["moe"].items()}
+        del state
+        torch.cuda.empty_cache()
+        raw = _moe_piece_ms(cfg, layer0, batch, seq)
+        pieces = {name: L * (fwd + both) for name, (fwd, both) in raw.items()}
+        print(f"[{tag}] MoE pieces timed alone at one layer's training "
+              f"shape (CUDA events; forward, forward + backward ms): "
+              + ", ".join(f"{n} {f:.3f}, {b:.3f}" for n, (f, b)
+                          in raw.items())
+              + f"; a step (x {L} layers, forward twice under remat): "
+              + ", ".join(f"{n} {ms:.1f} ms = {ms / step_ms:.3f} of the "
+                          f"step" for n, ms in pieces.items()), flush=True)
     else:
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us())
-        busy = sum(by_name.values())
-        flash_us = {n: us for n, us in by_name.items() if "flash_" in n}
-        bwd_us = sum(us for n, us in flash_us.items() if "flash_bwd" in n)
-        print(f"[train] profiled step: wall {wall_us / 1e3:.1f} ms, device "
-              f"time {busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}, "
-              f"{len(kernels)} kernels); flash kernels "
-              f"{sum(flash_us.values()) / 1e3:.2f} ms = "
-              f"{sum(flash_us.values()) / busy:.4f} of device time, of "
-              f"which the backward (Δ, dK/dV, dQ) {bwd_us / 1e3:.2f} ms = "
-              f"{bwd_us / busy:.4f}", flush=True)
-        profile = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
-                       busy_share=busy / wall_us,
-                       flash_ms=sum(flash_us.values()) / 1e3,
-                       flash_bwd_ms=bwd_us / 1e3,
-                       flash_bwd_share=bwd_us / busy)
-        for n, us in sorted(flash_us.items(), key=lambda kv: -kv[1]):
-            print(f"[train]   flash {us / 1e3:.3f} ms  {n[:90]}")
-        for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
-            print(f"[train]   top {us / 1e3:.3f} ms  {n[:90]}")
-    del state
+        del state
     torch.cuda.empty_cache()
     return dict(launches=launches, step_ms=step_ms, tokens_per_s=tokens_per_s,
-                mfu=mfu, peak_gb=peak_gb, profile=profile)
+                mfu=mfu, peak_gb=peak_gb, profile=profile, moe_pieces=pieces)
 
 
-def phase_small_training():
-    """One f32 training step on the card (kernels) against the CPU (plain)."""
-    from ray_tpu_torch.models import TransformerConfig, transformer_init
-    from ray_tpu_torch.train import make_lm_train_step
-    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
-                            n_heads=2, n_kv_heads=1, max_seq=256,
-                            dtype=torch.float32, attn_impl="flash")
-    cpu_params = transformer_init(torch.Generator().manual_seed(4), cfg,
-                                  device="cpu")
+def _card_vs_cpu_step(make_step, cpu_params, batch):
+    """One training step from the same f32 params on the CPU (the plain
+    versions) and on the card (the kernels) -> (metric diffs, the largest
+    difference of an updated parameter)."""
     card_params = _to_card(cpu_params)
-    batch = {"tokens": np.random.default_rng(4).integers(0, 512, (2, 200))}
     results = []
     for params, device in ((cpu_params, "cpu"), (card_params, None)):
-        init_fn, step_fn, place = make_lm_train_step(cfg, device=device)
+        init_fn, step_fn, place = make_step(device)
         state, metrics = step_fn(init_fn(params), place(batch))
         results.append((state.params, metrics))
     (want, wm), (got, gm) = results
     diffs = {k: abs(gm[k].item() - wm[k].item())
-             for k in ("loss", "grad_norm")}
+             for k in wm if k != "step"}
 
     def leaves(tree, prefix=""):
         for k, v in tree.items():
@@ -867,12 +1085,156 @@ def phase_small_training():
     cpu_leaves = dict(leaves(want))
     param_diff = max((v.detach().cpu() - cpu_leaves[k].detach()).abs().max()
                      .item() for k, v in leaves(got))
+    return diffs, param_diff
+
+
+def phase_small_training():
+    """One f32 training step on the card (kernels) against the CPU (plain)."""
+    from ray_tpu_torch.models import TransformerConfig, transformer_init
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=2, n_kv_heads=1, max_seq=256,
+                            dtype=torch.float32, attn_impl="flash")
+    cpu_params = transformer_init(torch.Generator().manual_seed(4), cfg,
+                                  device="cpu")
+    batch = {"tokens": np.random.default_rng(4).integers(0, 512, (2, 200))}
+    diffs, param_diff = _card_vs_cpu_step(
+        lambda device: make_lm_train_step(cfg, device=device), cpu_params,
+        batch)
     print(f"[reference] small f32 model (GQA 2:1, head_dim 128, S 200) one "
           f"training step card vs CPU: loss diff {diffs['loss']:.3e}, "
           f"grad_norm diff {diffs['grad_norm']:.3e}, updated params max "
           f"diff {param_diff:.3e} (tol {LOGIT_TOL_F32})", flush=True)
     check(max(*diffs.values(), param_diff) <= LOGIT_TOL_F32,
           "training step: card disagrees with the CPU reference")
+
+
+# ---------------------------------------------------------------------------
+# phases 9 and 10: ViT, and small f32 MoE and ViT models card vs CPU
+# ---------------------------------------------------------------------------
+
+def phase_vit_training(card):
+    """ViTConfig()'s defaults (224² images, patch 16, d_model 384, 6 layers,
+    6 heads of 64, 1000 classes, remat) at batch 128 on seeded random
+    images and labels: 2 warm-up steps counted step by step, 5 timed."""
+    from ray_tpu_torch.models import ViTConfig
+    from ray_tpu_torch.train import make_vit_train_step
+    from ray_tpu_torch.train.step import _leaves
+    cfg = ViTConfig()
+    batch, L = 128, cfg.n_layers
+    per_step = (2 * L, L, L, L)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = {"image": torch.randn(batch, cfg.image_size, cfg.image_size, 3,
+                                 generator=gen, device="cuda"),
+            "label": torch.randint(0, cfg.num_classes, (batch,),
+                                   generator=gen, device="cuda")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_fn, step_fn, place = make_vit_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(12))
+    n_params = sum(p.numel() for p in _leaves(state.params))
+    data = place(data)
+    print(f"[vit] params={n_params} image={cfg.image_size} patch="
+          f"{cfg.patch_size} seq={cfg.seq_len} d_model={cfg.d_model} "
+          f"layers={L} heads={cfg.n_heads} batch={batch} remat={cfg.remat}",
+          flush=True)
+    losses = []
+    for _ in range(2):
+        _reset_launch_counts()
+        state, metrics = step_fn(state, data)
+        losses.append(metrics["loss"].item())
+        check(_launch_counts() == per_step,
+              f"a ViT step launched {_launch_counts()}, want {per_step}")
+    steps = 5
+    _reset_launch_counts()
+    timed = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, metrics = step_fn(state, data)
+        timed.append(metrics)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launch_counts()
+    check(launches == tuple(steps * n for n in per_step),
+          f"{steps} ViT steps launched {launches}")
+    losses += [m["loss"].item() for m in timed]
+    accs = [m["accuracy"].item() for m in timed]
+    check(all(np.isfinite(losses)), f"non-finite ViT loss {losses}")
+    check(losses[-1] < losses[0], f"the ViT loss did not fall: {losses}")
+    step_ms = seconds / steps * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[vit] losses {[round(x, 4) for x in losses]} accuracy "
+          f"{[round(x, 4) for x in accs]}", flush=True)
+    print(f"[vit] {steps} timed steps: {step_ms:.2f} ms/step, "
+          f"{batch * steps / seconds:.0f} images/s, peak memory "
+          f"{peak_gb:.3f} GB, launches (fwd, dkv, dq, delta) {launches} on "
+          f"{card}", flush=True)
+    state, profile = _profile_step(step_fn, state, data, "vit")
+    del state
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms,
+                images_per_s=batch * steps / seconds, peak_gb=peak_gb,
+                profile=profile)
+
+
+def phase_small_moe_and_vit():
+    """A small f32 MoE LM and a small ViT (head_dim 64, 17 tokens, not
+    causal) on the card (the kernels) against the CPU (the plain versions):
+    logits, then one training step."""
+    from ray_tpu_torch.models import (TransformerConfig, ViTConfig, prefill,
+                                      transformer_init, vit_apply, vit_init)
+    from ray_tpu_torch.train import make_lm_train_step, make_vit_train_step
+    cfg = TransformerConfig(vocab_size=512, d_model=256, n_layers=2,
+                            n_heads=2, n_kv_heads=1, max_seq=256,
+                            dtype=torch.float32, attn_impl="flash",
+                            num_experts=4, expert_top_k=2)
+    cpu_params = transformer_init(torch.Generator().manual_seed(13), cfg,
+                                  device="cpu")
+    rng = np.random.default_rng(13)
+    prompt = torch.from_numpy(rng.integers(0, 512, (2, 200)))
+    with torch.inference_mode():
+        want, _ = prefill(cpu_params, prompt, cfg, 256, device="cpu")
+        got, _ = prefill(_to_card(cpu_params), prompt, cfg, 256)
+    logit_diff = (got.cpu() - want).abs().max().item()
+    diffs, param_diff = _card_vs_cpu_step(
+        lambda device: make_lm_train_step(cfg, device=device), cpu_params,
+        {"tokens": rng.integers(0, 512, (2, 200))})
+    print(f"[reference] small f32 MoE model (4 experts, top-2, GQA 2:1, "
+          f"head_dim 128) card vs CPU: prefill logits max_abs_diff="
+          f"{logit_diff:.3e}; one training step (capacity factor 1.25) loss "
+          f"diff {diffs['loss']:.3e}, grad_norm diff "
+          f"{diffs['grad_norm']:.3e}, updated params max diff "
+          f"{param_diff:.3e} (tol {LOGIT_TOL_F32})", flush=True)
+    check(max(logit_diff, *diffs.values(), param_diff) <= LOGIT_TOL_F32,
+          "small MoE model: card disagrees with the CPU reference")
+
+    vcfg = ViTConfig(image_size=64, patch_size=16, num_classes=10,
+                     d_model=128, n_layers=2, n_heads=2, dtype=torch.float32)
+    cpu_params = vit_init(torch.Generator().manual_seed(14), vcfg,
+                          device="cpu")
+    images = torch.from_numpy(rng.standard_normal((4, 64, 64, 3))
+                              .astype(np.float32))
+    with torch.inference_mode():
+        want = vit_apply(cpu_params, images, vcfg, device="cpu")
+        got = vit_apply(_to_card(cpu_params), images, vcfg)
+    logit_diff = (got.cpu() - want).abs().max().item()
+    diffs, param_diff = _card_vs_cpu_step(
+        lambda device: make_vit_train_step(vcfg, device=device), cpu_params,
+        {"image": images.numpy(), "label": rng.integers(0, 10, (4,))})
+    print(f"[reference] small f32 ViT (head_dim 64, 17 tokens, not causal) "
+          f"card vs CPU: logits max_abs_diff={logit_diff:.3e}; one training "
+          f"step loss diff {diffs['loss']:.3e}, accuracy diff "
+          f"{diffs['accuracy']:.3e}, updated params max diff "
+          f"{param_diff:.3e} (tol {LOGIT_TOL_F32})", flush=True)
+    check(max(logit_diff, *diffs.values(), param_diff) <= LOGIT_TOL_F32,
+          "small ViT: card disagrees with the CPU reference")
+
+
+def _paths(runs, part):
+    """Launches of one kernel (index ``part`` of the counts) by path."""
+    return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
+                   else (r["launches"] if part == 0 else 0))
+            for path, r in runs.items()}
 
 
 def main() -> int:
@@ -883,57 +1245,72 @@ def main() -> int:
     card, build = phase_card_and_build()
     results = phase_kernel_checks()
     bwd = phase_backward_checks()
-    serve_launches, _ = phase_serving(card)
+    runs = {"serve": phase_serving(card, flagship_cfg(), "serve", 0)}
     phase_small_reference()
     phase_long_prefill()
-    train = phase_training(card)
+    runs["train"] = phase_training(card, flagship_cfg(remat=True), "train", 3)
     phase_small_training()
+    runs["moe_serve"] = phase_serving(card, moe_cfg(), "moe-serve", 10)
+    runs["moe_train"] = phase_training(card, moe_cfg(remat=True),
+                                       "moe-train", 15)
+    runs["vit_train"] = phase_vit_training(card)
+    phase_small_moe_and_vit()
     fwd_main = results[("serve_prefill", "bf16")]
-    train_fwd = results[("max_seq_causal", "bf16")]
-    bwd_main = bwd[("train_causal", "bf16")]
-    launches = train["launches"]
+
+    def at(result, keys):
+        return {k: result[k] for k in keys}
+
+    fwd_keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_device_ms", "shape")
+    fwd_launches = _paths(runs, 0)
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
         "replaces": "ray_tpu/ops/flash.py:45",
-        "launches": serve_launches + launches[0],
-        "launches_by_path": {"serve": serve_launches, "train": launches[0]},
+        "launches": sum(fwd_launches.values()),
+        "launches_by_path": fwd_launches,
         "max_abs_err": fwd_main["max_abs_err"],
         "tol": TOL[torch.bfloat16]["out"],
         "cases_passed": len(results),
-        "ms": fwd_main["ms"],
-        "device_ms": fwd_main["device_ms"],
-        "plain_ms": fwd_main["plain_ms"],
-        "bound_ms": fwd_main["bound_ms"],
-        "bound_by": fwd_main["bound_by"],
-        "library_ms": fwd_main["library_ms"],
-        "library_device_ms": fwd_main["library_device_ms"],
-        "shape": fwd_main["shape"],
-        "train_shape": {k: train_fwd[k] for k in
-                        ("ms", "device_ms", "plain_ms", "bound_ms",
-                         "library_ms", "library_device_ms", "shape")},
+        **at(fwd_main, fwd_keys),
+        "train_shape": at(results[("max_seq_causal", "bf16")], fwd_keys),
+        "vit_shape": at(results[("vit_train", "bf16")], fwd_keys),
         "build": build,
         "dtype": "bfloat16",
         "card": card,
     }]
-    bwd_full = bwd[("full", "bf16")]
+    bwd_main = bwd[("train_causal", "bf16")]
     source = "ray_tpu_torch/ops/csrc/flash_bwd.cu"
-    for name, replaces, part, launched, errs in (
-            ("flash_bwd_dkv", "ray_tpu/ops/flash.py:134", "dkv", launches[1],
+    for name, replaces, part, index, errs in (
+            ("flash_bwd_dkv", "ray_tpu/ops/flash.py:134", "dkv", 1,
              slice(1, 3)),
-            ("flash_bwd_dq", "ray_tpu/ops/flash.py:176", "dq", launches[2],
+            ("flash_bwd_dq", "ray_tpu/ops/flash.py:176", "dq", 2,
              slice(0, 1)),
-            ("flash_bwd_delta", "ray_tpu/ops/flash.py:219", "delta",
-             launches[3], None)):
+            ("flash_bwd_delta", "ray_tpu/ops/flash.py:219", "delta", 3,
+             None)):
         ms, dev_ms = bwd_main["times"][part]
+        launched = _paths(runs, index)
+
+        def other(case):
+            r = bwd[(case, "bf16")]
+            plain = {"plain_ms": r["delta_plain_ms"], "library_ms": None} \
+                if errs is None else {"plain_ms": r["plain_ms"],
+                                      "library_ms": r["library_ms"]}
+            return {"ms": r["times"][part][0],
+                    "device_ms": r["times"][part][1],
+                    "bound_ms": r["bounds"][part][0],
+                    "bound_by": r["bounds"][part][1],
+                    "wrapper_ms": r["times"]["wrapper"][0],
+                    "shape": r["shape"], **plain}
+
         row = {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launched,
-            "launches_by_path": {"train": launched},
+            "launches": sum(launched.values()),
+            "launches_by_path": launched,
             "cases_passed": len(bwd),
             "ms": ms,
             "device_ms": dev_ms,
@@ -941,10 +1318,8 @@ def main() -> int:
             "bound_by": bwd_main["bounds"][part][1],
             "share_of_bound": _share(bwd_main["bounds"][part][0],
                                      bwd_main["times"][part]),
-            "full_shape": {"ms": bwd_full["times"][part][0],
-                           "device_ms": bwd_full["times"][part][1],
-                           "bound_ms": bwd_full["bounds"][part][0],
-                           "shape": bwd_full["shape"]},
+            "full_shape": other("full"),
+            "vit_shape": other("vit_train"),
             "shape": bwd_main["shape"],
             "dtype": "bfloat16",
             "card": card,
@@ -975,7 +1350,7 @@ def main() -> int:
                 "wrapper_device_ms": bwd_main["times"]["wrapper"][1],
             })
         kernels.append(row)
-    print(json.dumps({"train": train}))
+    print(json.dumps({"paths": runs}))
     print(json.dumps({"kernels": kernels}))
     from ray_tpu_torch import device_name
     # the run used one card, whatever else the machine holds

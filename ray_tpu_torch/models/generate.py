@@ -10,14 +10,16 @@
 - Unlike the JAX version, ``decode_step`` writes the new K/V into the cache
   in place and returns the same tensors: JAX's arrays are immutable, here an
   update in place saves a copy of the cache per token.
+- MoE models route without dropping at inference (``_inference_cfg``):
+  a decode step at S 1 never drops a token, so the prefill must not either,
+  or cached and uncached forward passes diverge.
 
-Dense models only in this slice: ``TransformerConfig`` refuses MoE, whose
-dropless inference config (``_inference_cfg`` in the JAX package) comes with
-the MoE slice. ``pp_stages`` does not exist in the port.
+``pp_stages`` does not exist in the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -27,6 +29,15 @@ from ray_tpu_torch.models.transformer import (TransformerConfig, _head,
                                               _layer_apply, _mlp, _rmsnorm,
                                               _rope, check_device,
                                               unstack_layers)
+
+
+def _inference_cfg(cfg: TransformerConfig) -> TransformerConfig:
+    """Dropless MoE at inference: capacity dropping is a training
+    throughput trade; S=1 decode never drops, so prefill must not either
+    or cached and uncached passes diverge."""
+    if cfg.num_experts and cfg.moe_capacity_factor is None:
+        return dataclasses.replace(cfg, moe_capacity_factor=1e9)
+    return cfg
 
 
 def init_cache(cfg: TransformerConfig, batch: int, max_len: int,
@@ -87,6 +98,7 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len: int,
     [B, vocab], filled cache). tokens [B, S], S <= max_len."""
     dev = resolve_device(device)
     check_device(params, dev)
+    cfg = _inference_cfg(cfg)
     tokens = tokens.to(dev)
     b, s = tokens.shape
     if s > max_len:
@@ -109,6 +121,7 @@ def decode_step(params, token, pos: int, cache, cfg: TransformerConfig,
     -> (logits [B, vocab], cache). The cache is updated in place."""
     dev = resolve_device(device)
     check_device(params, dev)
+    cfg = _inference_cfg(cfg)
     x = params["embed"].to(cfg.dtype)[token.to(dev)][:, None, :]  # [B,1,E]
     for i, layer in enumerate(unstack_layers(params)):
         x = _decode_layer(cfg, layer, cache["k"][i], cache["v"][i], x, pos)
@@ -129,8 +142,9 @@ def _sample(logits, generator: Optional[torch.Generator],
 
 
 def _cast_params(params, dtype):
-    """Every weight is cast to the compute dtype where it is used; casting
-    once per ``generate`` instead of once per token gives the same numbers."""
+    """Every weight (the ``moe`` subtree's too) is cast to the compute dtype
+    where it is used; casting once per ``generate`` instead of once per
+    token gives the same numbers."""
     if isinstance(params, dict):
         return {k: _cast_params(v, dtype) for k, v in params.items()}
     return params.to(dtype)
@@ -149,6 +163,7 @@ def generate(params, prompt, cfg: TransformerConfig, *,
     check_device(params, dev)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be at least 1")
+    cfg = _inference_cfg(cfg)
     with torch.inference_mode():
         params = _cast_params(params, cfg.dtype)
         b, s = prompt.shape

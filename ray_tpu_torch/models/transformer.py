@@ -8,8 +8,14 @@ stacked layers is a Python loop over the layers, and ``jax.checkpoint``
 (``cfg.remat``) is ``torch.utils.checkpoint``. Compute dtype bfloat16, params
 float32, logits float32.
 
-Not ported yet (ROADMAP.md): MoE layers, ring/Ulysses attention, pipeline
-stages (``pp_stages``, ``num_microbatches``) and ``transformer_logical_axes``.
+With ``num_experts > 0`` each layer's MLP is a Mixture-of-Experts layer
+(``models/moe.py``), its weights in a stacked ``moe`` subtree (router
+``[L, d, e]``, ``w1``/``w3 [L, e, d, f]``, ``w2 [L, e, f, d]``) in place of
+``mlp``, as in the JAX package.
+
+Not ported yet (ROADMAP.md): expert parallelism, ring/Ulysses attention,
+pipeline stages (``pp_stages``, ``num_microbatches``) and
+``transformer_logical_axes``.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models import moe
 from ray_tpu_torch.ops.attention import mha
 
 
@@ -40,13 +47,15 @@ class TransformerConfig:
     attn_impl: str = "auto"               # auto|reference|blockwise|flash
     causal: bool = True                   # False: bidirectional
     remat: bool = True                    # recompute layers in the backward
-    num_experts: int = 0                  # MoE: a later slice
+    # MoE (0 = dense)
+    num_experts: int = 0
+    # None -> moe_apply's training default (1.25); inference makes routing
+    # dropless (generate._inference_cfg)
+    moe_capacity_factor: Optional[float] = None
+    expert_top_k: int = 1
     tied_embeddings: bool = False
 
     def __post_init__(self):
-        if self.num_experts > 0:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md, queue A)")
         if self.attn_impl in ("ring", "ulysses"):
             raise NotImplementedError(
                 f"attn_impl={self.attn_impl!r} (sequence parallelism) is not "
@@ -78,9 +87,7 @@ def transformer_init(generator: torch.Generator, cfg: TransformerConfig,
     from ``jax.random``'s, so parity tests convert JAX params instead
     (``models/convert.py``)."""
     dev = resolve_device(device)
-    L, d, h, hk, hd, f = (cfg.n_layers, cfg.d_model, cfg.n_heads,
-                          cfg.kv_heads, cfg.head_dim, cfg.ff_dim)
-    pd = cfg.param_dtype
+    d, pd = cfg.d_model, cfg.param_dtype
 
     def normal(*shape):
         return torch.empty(shape, dtype=pd, device=dev).normal_(
@@ -91,19 +98,34 @@ def transformer_init(generator: torch.Generator, cfg: TransformerConfig,
 
     params = {
         "embed": normal(cfg.vocab_size, d),
-        "layers": {
-            "attn": {"wq": normal(L, d, h, hd), "wk": normal(L, d, hk, hd),
-                     "wv": normal(L, d, hk, hd), "wo": normal(L, h, hd, d)},
-            "ln1": ones(L, d),
-            "ln2": ones(L, d),
-            "mlp": {"w1": normal(L, d, f), "w3": normal(L, d, f),
-                    "w2": normal(L, f, d)},
-        },
+        "layers": layers_init(normal, ones, cfg),
         "final_norm": ones(d),
     }
     if not cfg.tied_embeddings:
         params["lm_head"] = normal(d, cfg.vocab_size)
     return params
+
+
+def layers_init(normal, ones, cfg: TransformerConfig) -> Dict[str, Any]:
+    """The stacked layer tree: ``normal(*shape)`` for matrices, ``ones`` for
+    norm scales, and a ``moe`` subtree in place of ``mlp`` when
+    ``cfg.num_experts``."""
+    L, d, h, hk, hd, f = (cfg.n_layers, cfg.d_model, cfg.n_heads,
+                          cfg.kv_heads, cfg.head_dim, cfg.ff_dim)
+    layers = {
+        "attn": {"wq": normal(L, d, h, hd), "wk": normal(L, d, hk, hd),
+                 "wv": normal(L, d, hk, hd), "wo": normal(L, h, hd, d)},
+        "ln1": ones(L, d),
+        "ln2": ones(L, d),
+    }
+    e = cfg.num_experts
+    if e:
+        layers["moe"] = {"router": normal(L, d, e), "w1": normal(L, e, d, f),
+                         "w3": normal(L, e, d, f), "w2": normal(L, e, f, d)}
+    else:
+        layers["mlp"] = {"w1": normal(L, d, f), "w3": normal(L, d, f),
+                         "w2": normal(L, f, d)}
+    return layers
 
 
 def unstack_layers(params) -> List[Dict[str, Any]]:
@@ -120,9 +142,10 @@ def unstack_layers(params) -> List[Dict[str, Any]]:
     return split(params["layers"])
 
 
-def check_device(params, dev: torch.device) -> None:
-    """The params must already lie on the resolved device."""
-    have = params["embed"].device
+def check_device(params, dev: torch.device, key: str = "embed") -> None:
+    """The params (their ``key`` leaf) must already lie on the resolved
+    device."""
+    have = params[key].device
     if have.type != dev.type:
         raise ValueError(f"params lie on {have}, the call asks for {dev}")
 
@@ -153,6 +176,10 @@ def _rope(x, positions, theta: float):
 
 
 def _mlp(cfg: TransformerConfig, layer, h):
+    """The layer's feed-forward block: the MoE layer when
+    ``cfg.num_experts``, else the dense SwiGLU MLP."""
+    if cfg.num_experts:
+        return moe.moe_apply(cfg, layer["moe"], h, device=h.device)
     dt = cfg.dtype
     m = layer["mlp"]
     gate = F.silu(h @ m["w1"].to(dt))
@@ -237,7 +264,11 @@ def transformer_loss(params, batch, cfg: TransformerConfig, *, device=None):
 def transformer_num_params(cfg: TransformerConfig) -> int:
     d, f, v = cfg.d_model, cfg.ff_dim, cfg.vocab_size
     per_layer = d * cfg.n_heads * cfg.head_dim * 2 \
-        + d * cfg.kv_heads * cfg.head_dim * 2 + 2 * d + 3 * d * f
+        + d * cfg.kv_heads * cfg.head_dim * 2 + 2 * d
+    if cfg.num_experts:
+        per_layer += d * cfg.num_experts + cfg.num_experts * 3 * d * f
+    else:
+        per_layer += 3 * d * f
     total = v * d + cfg.n_layers * per_layer + d
     if not cfg.tied_embeddings:
         total += d * v

@@ -19,6 +19,7 @@ import torch
 
 from ray_tpu.ops import attention as jattn
 from ray_tpu.ops import flash as jflash
+from ray_tpu_torch.ops import attention as tattn
 from ray_tpu_torch.ops import flash as tflash
 
 TOL = 2e-5
@@ -77,6 +78,29 @@ def test_flash_attention_on_cpu_matches_jax_reference(shape, causal):
                                 causal=causal)
     assert lse.shape == (b, h, sq)
     np.testing.assert_allclose(out.numpy(), want, atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("shape", BSHD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_non_default_scale_matches_jax_reference(shape, causal):
+    # the kernels fold scale into their exp2; the plain versions they are
+    # held against on the card must take it as the JAX reference does
+    b, sq, sk, h, kvh, d = shape
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, sq, h, d), np.float32)
+    k = rng.standard_normal((b, sk, kvh, d), np.float32)
+    v = rng.standard_normal((b, sk, kvh, d), np.float32)
+    want = np.asarray(jattn.attention_reference(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        scale=0.07))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    for got in (tflash.flash_attention(tq, tk, tv, causal=causal,
+                                       scale=0.07),
+                tattn.attention_reference(tq, tk, tv, causal=causal,
+                                          scale=0.07)):
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=TOL)
+    default = tflash.flash_attention(tq, tk, tv, causal=causal)
+    assert not np.allclose(default.numpy(), want, atol=1e-3)
 
 
 def test_plain_lse_is_logsumexp_of_scaled_logits():

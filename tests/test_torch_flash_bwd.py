@@ -127,17 +127,29 @@ BSHD_SHAPES = [(1, 100, 100, 2, 2, 64), (2, 40, 72, 2, 2, 64),
 @pytest.mark.parametrize("shape", BSHD_SHAPES)
 @pytest.mark.parametrize("causal", [True, False])
 def test_function_gradients_match_jax_grad(shape, causal):
+    _check_gradients_against_jax_grad(shape, causal, None)
+
+
+@pytest.mark.parametrize("shape", BSHD_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_gradients_with_scale_match_jax_grad(shape, causal):
+    # 0.07 is not the default d^-0.5 (0.125 at D 64, 0.088 at D 128), which
+    # the kernels fold into their exp2 in its place
+    _check_gradients_against_jax_grad(shape, causal, 0.07)
+
+
+def _check_gradients_against_jax_grad(shape, causal, scale):
     b, sq, sk, h, kvh, d = shape
     q, k, v, w = _arrays([(b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d),
                           (b, sq, h, d)], seed=3)
 
     def loss_jax(q, k, v):
-        return (jattn.mha(q, k, v, causal=causal, impl="reference")
-                * w).sum()
+        return (jattn.mha(q, k, v, causal=causal, scale=scale,
+                          impl="reference") * w).sum()
 
     want = jax.grad(loss_jax, argnums=(0, 1, 2))(q, k, v)
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
-    out = tattn.mha(*ts, causal=causal, impl="flash")
+    out = tattn.mha(*ts, causal=causal, scale=scale, impl="flash")
     assert out.grad_fn is not None and "FlashAttention" in type(
         out.grad_fn).__name__
     (out * torch.from_numpy(w)).sum().backward()

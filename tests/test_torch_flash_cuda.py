@@ -22,11 +22,11 @@ to Δ's largest magnitude (the same exact products, summed in another order).
 import pytest
 import torch
 
-from ray_tpu_torch.models import (TransformerConfig, prefill,
+from ray_tpu_torch.models import (TransformerConfig, ViTConfig, prefill,
                                   transformer_init)
 from ray_tpu_torch.ops import flash
 from ray_tpu_torch.ops.attention import attention_reference, mha
-from ray_tpu_torch.train import make_lm_train_step
+from ray_tpu_torch.train import make_lm_train_step, make_vit_train_step
 
 TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-3)}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -116,6 +116,29 @@ def test_rows_that_see_no_key_are_exact(cuda_device, shape, dtype):
     torch.testing.assert_close(out.float(), want.float(), atol=tol_out,
                                rtol=0)
     torch.testing.assert_close(lse, want_lse, atol=tol_lse, rtol=0)
+
+
+# causal at D 128 and D 64 (GQA, Sq < Sk), for the non-default scale
+SCALE_CASES = [(2, 300, 300, 4, 4, 128), (1, 200, 257, 4, 2, 64)]
+SCALE = 0.07   # not d^-0.5 (0.088 at D 128, 0.125 at D 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCALE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_with_scale_matches_plain(cuda_device, shape, dtype):
+    # the kernel folds scale into its exp2 (scale·log2 e)
+    q, k, v = _qkv(cuda_device, *shape, dtype, seed=4)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=True, scale=SCALE)
+        want, want_lse = flash.flash_fwd_plain(q, k, v, causal=True,
+                                               scale=SCALE)
+        default, _ = flash.flash_fwd_plain(q, k, v, causal=True)
+    tol_out, tol_lse = TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol_out,
+                               rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=tol_lse, rtol=0)
+    assert (default.float() - want.float()).abs().max() > 10 * tol_out
 
 
 @pytest.mark.cuda
@@ -232,6 +255,25 @@ def test_bwd_kernels_match_plain(cuda_device, shape, causal, dtype):
             scale = want[2].float().abs().max()
             assert g.float().abs().max() <= BWD_TOL[dtype] * scale, name
             continue
+        assert _rel_err(g, w) <= BWD_TOL[dtype], (name, _rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SCALE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_with_scale_match_plain(cuda_device, shape, dtype):
+    # the dK/dV and dQ kernels fold scale into exp2 and into dS
+    q, k, v = _qkv(cuda_device, *shape, dtype, seed=5)
+    gen = torch.Generator(device=cuda_device).manual_seed(10)
+    do = torch.randn(q.shape, generator=gen, device=cuda_device).to(dtype)
+    with torch.inference_mode():
+        out, lse = flash.flash_fwd(q, k, v, causal=True, scale=SCALE)
+        got = flash.flash_bwd(q, k, v, out, lse, do, causal=True,
+                              scale=SCALE)
+        torch.cuda.synchronize()
+        want = flash.flash_bwd_plain(q, k, v, out, lse, do, causal=True,
+                                     scale=SCALE)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert _rel_err(g, w) <= BWD_TOL[dtype], (name, _rel_err(g, w))
 
 
@@ -354,4 +396,45 @@ def test_train_step_launches_each_kernel_per_layer(cuda_device):
     state, metrics = step_fn(state, batch)
     torch.cuda.synchronize()
     assert _counts() == (6, 3, 3, 3)
+    assert torch.isfinite(metrics["loss"]) and metrics["step"] == 1
+
+
+def _reset_counts():
+    flash.launches = flash.bwd_dkv_launches = flash.bwd_dq_launches = 0
+    flash.bwd_delta_launches = 0
+
+
+@pytest.mark.cuda
+def test_moe_train_step_launches_each_kernel_per_layer(cuda_device):
+    # the MoE layer changes the MLP only: attention launches as dense
+    cfg = TransformerConfig(vocab_size=256, d_model=256, n_layers=2,
+                            n_heads=2, num_experts=4, expert_top_k=2)
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda_device).manual_seed(1))
+    batch = place({"tokens": torch.randint(0, 256, (2, 70))})
+    _reset_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert _counts() == (4, 2, 2, 2)
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(
+        metrics["grad_norm"])
+
+
+@pytest.mark.cuda
+def test_vit_train_step_launches_each_kernel_per_layer(cuda_device):
+    # bidirectional attention at head_dim 64 over 17 tokens goes to the
+    # kernels under mha's auto
+    cfg = ViTConfig(image_size=32, patch_size=8, num_classes=10,
+                    d_model=128, n_layers=2, n_heads=2)
+    init_fn, step_fn, place = make_vit_train_step(cfg)
+    state = init_fn(torch.Generator(device=cuda_device).manual_seed(2))
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    batch = place({"image": torch.randn(4, 32, 32, 3, generator=gen,
+                                        device=cuda_device),
+                   "label": torch.randint(0, 10, (4,), generator=gen,
+                                          device=cuda_device)})
+    _reset_counts()
+    state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    assert _counts() == (4, 2, 2, 2)
     assert torch.isfinite(metrics["loss"]) and metrics["step"] == 1

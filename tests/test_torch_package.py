@@ -2,6 +2,7 @@
 kernel build keyed on its sources."""
 
 import ast
+import dataclasses
 from pathlib import Path
 
 import pytest
@@ -42,6 +43,8 @@ def test_import_walk_covers_every_module_of_the_port():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     for module in ("ray_tpu_torch/train/__init__.py",
                    "ray_tpu_torch/train/step.py",
+                   "ray_tpu_torch/models/moe.py",
+                   "ray_tpu_torch/models/vit.py",
                    "ray_tpu_torch/ops/flash.py", "chip_smoke.py"):
         assert module in names
 
@@ -66,7 +69,20 @@ ENTRY_POINTS = {
     "transformer_loss": lambda cfg: tmodels.transformer_loss(
         {}, {"tokens": torch.zeros(1, 4, dtype=torch.long)}, cfg),
     "make_lm_train_step": lambda cfg: ttrain.make_lm_train_step(cfg),
+    "moe_apply": lambda cfg: tmodels.moe_apply(
+        dataclasses.replace(cfg, num_experts=4, expert_top_k=2), {},
+        torch.zeros(1, 4, 32)),
+    "vit_init": lambda cfg: tmodels.vit_init(torch.Generator(), VIT),
+    "vit_apply": lambda cfg: tmodels.vit_apply(
+        {}, torch.zeros(1, 32, 32, 3), VIT),
+    "vit_loss": lambda cfg: tmodels.vit_loss(
+        {}, {"image": torch.zeros(1, 32, 32, 3),
+             "label": torch.zeros(1, dtype=torch.long)}, VIT),
+    "vit_params_from_jax": lambda cfg: tmodels.vit_params_from_jax({}, VIT),
+    "make_vit_train_step": lambda cfg: ttrain.make_vit_train_step(VIT),
 }
+VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
+                        d_model=32, n_layers=1, n_heads=2)
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))

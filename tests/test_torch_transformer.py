@@ -130,7 +130,7 @@ def test_num_params_matches_jax():
         assert total == ttf.transformer_num_params(tcfg)
 
 
-@pytest.mark.parametrize("kw", [{"num_experts": 4}, {"attn_impl": "ring"},
+@pytest.mark.parametrize("kw", [{"attn_impl": "ring"},
                                 {"attn_impl": "ulysses"}])
 def test_later_slices_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
