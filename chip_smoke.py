@@ -70,6 +70,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    images/s, peak memory and one profiled step.
 10. A small f32 MoE LM and a small ViT on the card against the CPU: logits
    and one training step.
+11. ResNet-50 training at bench.py's bench_resnet point: 1000 classes, 224²
+   images, batch 256 of seeded normal images (NHWC) and labels, SGD at lr
+   0.1 with Nesterov momentum 0.9 through ``make_resnet_train_step`` (bf16
+   convolutions in cuDNN, channels_last, ``torch.backends.cudnn.benchmark``
+   on for this phase only); 3 warm-up steps, then the best of two windows
+   of 30 steps. No flash kernel runs on this path (the JAX ResNet runs no
+   Pallas kernel): every count must stay 0. Step ms, images/s, the tensor
+   cores' bound for the step's convolutions, peak memory, a falling and
+   finite loss, batch statistics moved from their init, an eval-mode
+   forward's finite logits, and one profiled step's device time by kernel
+   class (convolutions, BatchNorm, element-wise, SGD, other).
+12. A small f32 ResNet (stages 1, 1, 1, 1; 32² images, 10 classes) on the
+   card with TF32 off against the CPU: logits in train and eval mode, then
+   one training step's loss, updated parameters and batch statistics.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -81,6 +95,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1074,18 +1089,23 @@ def _card_vs_cpu_step(make_step, cpu_params, batch):
     (want, wm), (got, gm) = results
     diffs = {k: abs(gm[k].item() - wm[k].item())
              for k in wm if k != "step"}
+    return diffs, _max_diff(got, want)
 
-    def leaves(tree, prefix=""):
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                yield from leaves(v, f"{prefix}{k}.")
-            else:
-                yield f"{prefix}{k}", v
 
-    cpu_leaves = dict(leaves(want))
-    param_diff = max((v.detach().cpu() - cpu_leaves[k].detach()).abs().max()
-                     .item() for k, v in leaves(got))
-    return diffs, param_diff
+def _named_leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v, f"{prefix}{k}.")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _max_diff(card_tree, cpu_tree):
+    """The largest difference of a leaf of ``card_tree`` from the same
+    leaf of ``cpu_tree``."""
+    cpu_leaves = dict(_named_leaves(cpu_tree))
+    return max((v.detach().cpu() - cpu_leaves[k].detach()).abs().max()
+               .item() for k, v in _named_leaves(card_tree))
 
 
 def phase_small_training():
@@ -1230,6 +1250,265 @@ def phase_small_moe_and_vit():
           "small ViT: card disagrees with the CPU reference")
 
 
+# ---------------------------------------------------------------------------
+# phases 11 and 12: ResNet-50
+# ---------------------------------------------------------------------------
+
+def resnet_train_flops(model, image_size, batch):
+    """Tensor-core operations of one training step: 2 per multiply-add of
+    every convolution and the Dense head, forward, weight gradient and input
+    gradient (none for the first convolution: the images need none)."""
+    size = (image_size + 2 * 3 - 7) // 2 + 1          # conv_init, 7x7/2
+    stem = size * size * 64 * 3 * 49
+    size = -(-size // 2)                              # max pool, SAME /2
+    macs = 0
+    for _, block, c_in in model.blocks():
+        f, out = block.filters, -(-size // block.strides)
+        macs += size * size * f * c_in + out * out * (f * f * 9 + 4 * f * f)
+        if block.strides != 1 or c_in != 4 * f:
+            macs += out * out * 4 * f * c_in
+        size = out
+    macs += math.prod(model.variable_shapes()["params"]["Dense_0"]["kernel"])
+    return 2 * batch * (3 * macs + 2 * stem)
+
+
+def _resnet_kernel_class(name):
+    """Which part of a ResNet step a kernel belongs to, by its name."""
+    low = name.lower()
+    if "multi_tensor_apply" in low:          # SGD's foreach updates
+        return "sgd"
+    if "batch_norm" in low or "batchnorm" in low or "bn_" in low:
+        return "batchnorm"
+    if any(t in low for t in ("conv", "xmma", "implicit_gemm", "fprop",
+                              "dgrad", "wgrad", "gemm", "sm90_", "cutlass",
+                              "nvjet", "cudnn")):
+        return "convolution"
+    if "elementwise" in low or "threshold" in low or "clamp" in low:
+        return "elementwise"
+    return "other"
+
+
+RESNET_CLASSES = ("convolution", "batchnorm", "elementwise", "sgd", "other")
+
+
+def _profile_resnet_step(step_fn, state, data):
+    """One profiled ResNet step: device time by kernel class against the
+    wall time, and the largest kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, data)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = _device_kernels(prof)
+    if not kernels:
+        print("[resnet] device time breakdown: not measured (the profiler "
+              "recorded no device events)", flush=True)
+        return state, None
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    by_class = {}
+    for n, us in by_name.items():
+        c = _resnet_kernel_class(n)
+        by_class[c] = by_class.get(c, 0.0) + us
+    print(f"[resnet] profiled step: wall {wall_us / 1e3:.1f} ms, device "
+          f"time {busy / 1e3:.1f} ms (busy share {busy / wall_us:.3f}, "
+          f"{len(kernels)} kernels); " + ", ".join(
+              f"{c} {by_class.get(c, 0.0) / 1e3:.2f} ms = "
+              f"{by_class.get(c, 0.0) / busy:.4f}" for c in RESNET_CLASSES),
+          flush=True)
+    for n, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"[resnet]   top {us / 1e3:.3f} ms  "
+              f"({_resnet_kernel_class(n)}) {n[:90]}")
+    return state, dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+                       busy_share=busy / wall_us, kernels=len(kernels),
+                       by_class_ms={c: us / 1e3
+                                    for c, us in by_class.items()})
+
+
+def phase_resnet_training(card):
+    """bench.py's bench_resnet point on one card: ResNet-50, 1000 classes,
+    224² images, batch 256, SGD lr 0.1 with Nesterov momentum 0.9; 3
+    warm-up steps, then the best of two windows of 30 steps, each ending in
+    a synchronize."""
+    from ray_tpu_torch.models import resnet50, resnet50_apply
+    from ray_tpu_torch.train import make_resnet_train_step
+    from ray_tpu_torch.train.step import _leaves
+    batch, size, steps = 256, 224, 30
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    print(f"[resnet] torch.backends.cudnn.benchmark=True for this phase "
+          f"(cuDNN times its algorithms at each new convolution shape and "
+          f"keeps the fastest); back to {prior} after it", flush=True)
+    try:
+        model = resnet50()
+        rng = np.random.default_rng(0)       # bench_resnet's data
+        host = {"image": rng.normal(size=(batch, size, size, 3))
+                .astype(np.float32),
+                "label": rng.integers(0, 1000, (batch,))}
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        init_fn, step_fn, place = make_resnet_train_step(
+            num_classes=1000, image_size=size, learning_rate=0.1)
+        state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        stats0 = [t.clone() for t in _leaves(state.params["batch_stats"])]
+        n_params = sum(t.numel() for t in _leaves(state.params["params"]))
+        data = place(host)
+        del host
+        print(f"[resnet] params={n_params} batch_stats="
+              f"{sum(t.numel() for t in stats0)} batch={batch} image={size} "
+              f"dtype=bfloat16 channels_last", flush=True)
+        metrics = []
+        t0 = time.perf_counter()
+        for _ in range(3):                   # warm-up (and cuDNN's search)
+            state, m = step_fn(state, data)
+            metrics.append(m)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        _reset_launch_counts()
+        windows = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                state, m = step_fn(state, data)
+                metrics.append(m)
+            torch.cuda.synchronize()
+            windows.append(time.perf_counter() - t0)
+        launches = _launch_counts()
+        check(launches == (0, 0, 0, 0),
+              f"the ResNet step launched flash kernels {launches}")
+        losses = [m["loss"].item() for m in metrics]
+        accs = [m["accuracy"].item() for m in metrics]
+        check(all(np.isfinite(losses)) and all(np.isfinite(accs)),
+              f"non-finite ResNet metrics: loss {losses}, accuracy {accs}")
+        check(losses[-1] < losses[0], f"the ResNet loss did not fall: "
+                                      f"{losses}")
+        best = min(windows)
+        step_ms = best / steps * 1e3
+        images_per_s = steps * batch / best
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        flops = resnet_train_flops(model, size, batch)
+        bound_ms = flops / PEAK_BF16_FLOPS * 1e3
+        moved = sum(not torch.equal(a, b) for a, b in
+                    zip(stats0, _leaves(state.params["batch_stats"])))
+        check(moved == len(stats0) and all(
+            torch.isfinite(t).all().item()
+            for t in _leaves(state.params["batch_stats"])),
+            f"{len(stats0) - moved} of {len(stats0)} batch statistics did "
+            f"not move, or are not finite")
+        with torch.inference_mode():
+            logits = resnet50_apply(model, state.params, data["image"],
+                                    train=False)
+        check(logits.shape == (batch, 1000) and logits.dtype == torch.float32
+              and torch.isfinite(logits).all().item(),
+              "eval-mode logits are not finite [256, 1000] f32")
+        print(f"[resnet] losses {[round(x, 4) for x in losses[:3]]} (warm-up)"
+              f" ... {[round(x, 4) for x in losses[3::10]]} (every 10th "
+              f"timed) ... {round(losses[-1], 4)} (last); accuracy "
+              f"{round(accs[0], 4)} -> {round(accs[-1], 4)}; all finite; "
+              f"{moved} of {len(stats0)} batch statistics moved from their "
+              f"init; eval-mode logits finite, std "
+              f"{logits.std().item():.4f}", flush=True)
+        print(f"[resnet] warm-up 3 steps {warmup_s:.2f} s; windows of "
+              f"{steps} steps {[round(w, 4) for w in windows]} s; best "
+              f"{step_ms:.2f} ms/step, {images_per_s:.1f} images/s, peak "
+              f"memory {peak_gb:.2f} GB; convolutions and head "
+              f"{flops / 1e12:.3f} TFLOP a step, tensor-core bound "
+              f"{bound_ms:.2f} ms at 989 TFLOP/s = {bound_ms / step_ms:.3f} "
+              f"of the step; flash launches {launches} on {card}",
+              flush=True)
+        state, profile = _profile_resnet_step(step_fn, state, data)
+        if profile is not None:
+            profile["device_over_timed_step"] = profile["device_ms"] / step_ms
+            print(f"[resnet] the profiled step's device time over the timed "
+                  f"step: {profile['device_over_timed_step']:.3f} (the "
+                  f"profiler's own cost is in its wall time)", flush=True)
+        del state, data, logits
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=step_ms,
+                images_per_s=images_per_s, peak_gb=peak_gb,
+                windows_s=windows, flops=flops, bound_ms=bound_ms,
+                losses=[losses[0], losses[-1]], profile=profile)
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """f32 convolutions and products in full f32 for the block (the
+    library flips no global switch; this script does, for its own check)."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def _perturbed(variables, gen):
+    """``variables`` with every BatchNorm scale and running variance in
+    [0.5, 1.5) and every bias and running mean normal(0.1), from ``gen``:
+    the init zeroes each block's last scale, which would hide its branch."""
+    def walk(tree):
+        return {k: walk(v) if isinstance(v, dict)
+                else 0.5 + torch.rand(v.shape, generator=gen)
+                if k in ("scale", "var")
+                else 0.1 * torch.randn(v.shape, generator=gen)
+                if k in ("bias", "mean") else v
+                for k, v in tree.items()}
+    return walk(variables)
+
+
+def phase_small_resnet():
+    """A small f32 ResNet on the card (cuDNN, TF32 off) against the CPU:
+    logits in train and eval mode, then one training step."""
+    from ray_tpu_torch.models import ResNet, resnet50_apply
+    from ray_tpu_torch.train import make_resnet_train_step
+    model = ResNet((1, 1, 1, 1), 10, torch.float32)
+    gen = torch.Generator().manual_seed(16)
+    cpu_vars = _perturbed(model.init(gen, device="cpu"), gen)
+    rng = np.random.default_rng(16)
+    images = torch.from_numpy(rng.standard_normal((4, 32, 32, 3))
+                              .astype(np.float32))
+    with _tf32_off():
+        print("[reference] small ResNet: cudnn.allow_tf32 and "
+              "cuda.matmul.allow_tf32 False for this check", flush=True)
+        diffs = {}
+        with torch.inference_mode():
+            card_vars = _to_card(cpu_vars)
+            for train in (True, False):
+                want = resnet50_apply(model, cpu_vars, images, train=train,
+                                      device="cpu")
+                got = resnet50_apply(model, card_vars, images, train=train)
+                if train:
+                    (want, want_stats), (got, got_stats) = want, got
+                    diffs["batch_stats"] = _max_diff(got_stats, want_stats)
+                diffs[f"logits_{'train' if train else 'eval'}"] = (
+                    got.cpu() - want).abs().max().item()
+        step_diffs, param_diff = _card_vs_cpu_step(
+            lambda device: make_resnet_train_step(
+                num_classes=10, image_size=32, dtype=torch.float32,
+                stage_sizes=(1, 1, 1, 1), device=device), cpu_vars,
+            {"image": images.numpy(), "label": rng.integers(0, 10, (4,))})
+    print(f"[reference] small f32 ResNet (stages 1, 1, 1, 1; 32² images, "
+          f"batch 4, 10 classes) card vs CPU: logits train "
+          f"{diffs['logits_train']:.3e}, eval {diffs['logits_eval']:.3e}, "
+          f"new batch statistics {diffs['batch_stats']:.3e}; one training "
+          f"step loss diff {step_diffs['loss']:.3e}, accuracy diff "
+          f"{step_diffs['accuracy']:.3e}, updated params and batch "
+          f"statistics max diff {param_diff:.3e} (tol {LOGIT_TOL_F32})",
+          flush=True)
+    check(max(*diffs.values(), *step_diffs.values(), param_diff)
+          <= LOGIT_TOL_F32, "small ResNet: card disagrees with the CPU")
+    return dict(diffs, step_loss=step_diffs["loss"], step_params=param_diff)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -1255,6 +1534,8 @@ def main() -> int:
                                        "moe-train", 15)
     runs["vit_train"] = phase_vit_training(card)
     phase_small_moe_and_vit()
+    runs["resnet_train"] = phase_resnet_training(card)
+    runs["resnet_train"]["small_f32_vs_cpu"] = phase_small_resnet()
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

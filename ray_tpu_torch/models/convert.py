@@ -1,22 +1,25 @@
 """Weights from the JAX package into the port.
 
 ``params_from_jax`` takes the tree that ``ray_tpu.models.transformer_init``
-returns (dense, or with the stacked ``moe`` subtree of an MoE model), and
-``vit_params_from_jax`` the tree of ``ray_tpu.models.vit_init``, with every
-leaf already turned into a numpy array by the caller (for example
-``jax.tree.map(np.asarray, params)``). Each returns the port's dict: the same
-keys and the same stacked layout, as torch tensors. Both stacks then compute
-the same function. This module imports no JAX.
+returns (dense, or with the stacked ``moe`` subtree of an MoE model),
+``vit_params_from_jax`` the tree of ``ray_tpu.models.vit_init`` and
+``resnet_variables_from_jax`` the ``{"params", "batch_stats"}`` tree of a
+flax ``ResNet``, with every leaf already turned into a numpy array by the
+caller (for example ``jax.tree.map(np.asarray, params)``). Each returns the
+port's dict: the same keys, as torch tensors, in the same layout except the
+ResNet's conv kernels (HWIO to OIHW). Both stacks then compute the same
+function. This module imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.resnet import ResNet, resnet50
 from ray_tpu_torch.models.transformer import TransformerConfig
 
 
@@ -57,3 +60,46 @@ def vit_params_from_jax(tree, cfg, device=None) -> Dict[str, Any]:
         raise ValueError(f"patch_proj is {np.shape(tree['patch_proj'])}, "
                          f"the config asks for {want}")
     return _convert(tree, dev, cfg.param_dtype)
+
+
+def _shapes(tree, shape=np.shape, path=""):
+    """{"a/b/c": shape(leaf)} of a tree's leaves."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_shapes(v, shape, f"{path}{k}/"))
+        else:
+            out[f"{path}{k}"] = tuple(shape(v))
+    return out
+
+
+def resnet_variables_from_jax(variables, model: Optional[ResNet] = None,
+                              device=None) -> Dict[str, Any]:
+    """flax's ``{"params", "batch_stats"}`` tree of ``model`` (default
+    ``resnet50()``: stages (3, 4, 6, 3), 1000 classes) -> the port's tree on
+    the device, f32. Conv kernels go from HWIO to OIHW, once; the Dense
+    kernel stays [in, out]. A tree of other stage sizes or another class
+    count raises, naming the leaves that differ."""
+    dev = resolve_device(device)
+    model = resnet50() if model is None else model
+
+    def to_port(tree):
+        return {k: to_port(v) if isinstance(v, dict)
+                else np.ascontiguousarray(np.transpose(v, (3, 2, 0, 1)))
+                if k == "kernel" and np.ndim(v) == 4 else v
+                for k, v in tree.items()}
+
+    tree = to_port({k: variables.get(k, {}) for k in ("params",
+                                                     "batch_stats")})
+    have = _shapes(tree)
+    want = _shapes(model.variable_shapes(), shape=tuple)
+    diff = sorted(f"{k}: {have.get(k, 'missing')}, want "
+                  f"{want.get(k, 'none')}"
+                  for k in have.keys() | want.keys()
+                  if have.get(k) != want.get(k))
+    if diff:
+        raise ValueError(
+            f"the variables are not those of ResNet(stage_sizes="
+            f"{model.stage_sizes}, num_classes={model.num_classes}): "
+            + "; ".join(diff[:6]) + (" ..." if len(diff) > 6 else ""))
+    return _convert(tree, dev, torch.float32)

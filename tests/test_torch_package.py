@@ -45,6 +45,8 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/train/step.py",
                    "ray_tpu_torch/models/moe.py",
                    "ray_tpu_torch/models/vit.py",
+                   "ray_tpu_torch/models/resnet.py",
+                   "ray_tpu_torch/models/mlp.py",
                    "ray_tpu_torch/ops/flash.py", "chip_smoke.py"):
         assert module in names
 
@@ -80,6 +82,14 @@ ENTRY_POINTS = {
              "label": torch.zeros(1, dtype=torch.long)}, VIT),
     "vit_params_from_jax": lambda cfg: tmodels.vit_params_from_jax({}, VIT),
     "make_vit_train_step": lambda cfg: ttrain.make_vit_train_step(VIT),
+    "resnet50_init": lambda cfg: tmodels.resnet50_init(torch.Generator()),
+    "resnet50_apply": lambda cfg: tmodels.resnet50_apply(
+        tmodels.resnet50(), {}, torch.zeros(1, 32, 32, 3)),
+    "resnet_variables_from_jax": lambda cfg:
+        tmodels.resnet_variables_from_jax({}),
+    "make_resnet_train_step": lambda cfg: ttrain.make_resnet_train_step(),
+    "mlp_init": lambda cfg: tmodels.mlp_init(torch.Generator(), [4, 2]),
+    "mlp_apply": lambda cfg: tmodels.mlp_apply([], torch.zeros(1, 4)),
 }
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
                         d_model=32, n_layers=1, n_heads=2)
