@@ -84,6 +84,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
 12. A small f32 ResNet (stages 1, 1, 1, 1; 32² images, 10 classes) on the
    card with TF32 off against the CPU: logits in train and eval mode, then
    one training step's loss, updated parameters and batch statistics.
+13. PPO on CartPole (``ray_tpu_torch.rl``) at the JAX package's learning
+   gate (tests/test_rl.py): 2 in-process rollout workers x 16 envs x 64
+   steps, hiddens (64, 64), lr 3e-4, 8 epochs of minibatch 256, entropy
+   0.01, seed 0, 25 iterations in PPO.training_step's order (sample,
+   concat, PPOLearner.update on the card, get_weights back to the
+   workers). The best mean reward must reach 120. Env steps/s, sample and
+   update ms of an iteration, SGD steps/s, and one profiled update's busy
+   share and kernels a SGD step. Then the same with the workers on the CPU
+   (as the JAX cluster places its rollout actors). No flash kernel runs on
+   an RL path (the JAX RL stack reaches no Pallas kernel): every count must
+   stay 0.
+14. The PPO learner at Atari frame size: ConvRLModule on 84x84x4 frames, 4
+   actions, one update of a seeded 5,000-frame batch at minibatch 500 for
+   10 epochs, clip 0.1, entropy 0.01 (RLlib's atari-ppo batch settings):
+   update ms, samples/s, peak memory, finite stats, a profiled update.
+15. Small f32 RL modules (MLP, CNN, LSTM and GTrXL with dones) on the card
+   (TF32 off) against the CPU: logits, values, final states, logp and
+   entropy of fixed actions, one PPOLearner.update (MLP, CNN) or the
+   gradients of a loss over a sequence (LSTM, GTrXL).
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -1509,6 +1528,307 @@ def phase_small_resnet():
     return dict(diffs, step_loss=step_diffs["loss"], step_params=param_diff)
 
 
+# ---------------------------------------------------------------------------
+# phases 13, 14 and 15: the RL stack (ray_tpu_torch.rl)
+# ---------------------------------------------------------------------------
+
+# The JAX package's PPO learning gate (tests/test_rl.py): 2 rollout workers x
+# 16 CartPole envs x 64 steps, hiddens (64, 64), lr 3e-4, 8 SGD epochs of
+# minibatch 256, entropy 0.01, clip 0.2, grad clip 0.5, seed 0; best mean
+# reward >= 120 within 25 iterations. Workers seeded as WorkerSet seeds them.
+PPO_SPEC = {"obs_dim": 4, "num_actions": 2, "hiddens": (64, 64)}
+PPO_GATE, PPO_ITERS = 120.0, 25
+# Small f32 RL models, card (TF32 off) against the CPU: the same products
+# summed in another order, through at most 16 recurrent steps and 2 Adam
+# steps.
+RL_TOL_F32 = 1e-4
+
+
+def _rl_profile(fn, sgd_steps, tag):
+    """Device time, busy share and kernels a SGD step of ``fn`` (one
+    learner update) under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = _device_kernels(prof)
+    if not kernels:
+        print(f"[{tag}] busy share: not measured (the profiler recorded no "
+              f"device events)", flush=True)
+        return None
+    busy = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    out = dict(wall_ms=wall_us / 1e3, device_ms=busy / 1e3,
+               busy_share=busy / wall_us, kernels=len(kernels),
+               kernels_per_sgd_step=len(kernels) / sgd_steps)
+    print(f"[{tag}] profiled update: wall {out['wall_ms']:.2f} ms, device "
+          f"time {out['device_ms']:.2f} ms, busy share "
+          f"{out['busy_share']:.4f}, {len(kernels)} kernels = "
+          f"{out['kernels_per_sgd_step']:.1f} a SGD step; largest: " +
+          "; ".join(f"{n[:60]} {us / 1e3:.2f} ms" for n, us in top),
+          flush=True)
+    return out
+
+
+def _ppo_cartpole(worker_device, tag):
+    """PPO.training_step's order with the workers in-process: sample on
+    every worker, concat, PPOLearner.update on the card, get_weights back to
+    the workers; PPO_ITERS iterations, each timed on the host clock (the
+    learner's stats are floats, so an update ends in a sync)."""
+    from ray_tpu_torch.rl import PPOLearner, RolloutWorker, SampleBatch
+    learner = PPOLearner(PPO_SPEC, lr=3e-4, clip_param=0.2, grad_clip=0.5,
+                         num_sgd_iter=8, sgd_minibatch_size=256,
+                         entropy_coeff=0.01, seed=0)
+    workers = [RolloutWorker("CartPole-v1", PPO_SPEC, 64, 16, 0.99, 0.95,
+                             seed=1000 * (i + 1), device=worker_device)
+               for i in range(2)]
+    weights, rewards, sample_s, update_s, steps = \
+        learner.get_weights(), [], [], [], 0
+    _reset_launch_counts()
+    for _ in range(PPO_ITERS):
+        t0 = time.perf_counter()
+        batch = SampleBatch.concat_samples([w.sample(weights)
+                                            for w in workers])
+        t1 = time.perf_counter()
+        stats = learner.update(batch)
+        weights = learner.get_weights()
+        t2 = time.perf_counter()
+        sample_s.append(t1 - t0)
+        update_s.append(t2 - t1)
+        steps += batch.count
+        check(all(np.isfinite(v) for v in stats.values()),
+              f"[{tag}] non-finite learner stats {stats}")
+        means = [s["episode_reward_mean"] for s in
+                 (w.episode_stats() for w in workers) if s["episodes"] > 0]
+        rewards.append(float(np.mean(means)) if means else float("nan"))
+    launches = _launch_counts()
+    best = max((r for r in rewards if not np.isnan(r)), default=0.0)
+    first = next((i + 1 for i, r in enumerate(rewards) if r >= PPO_GATE),
+                 None)
+    total = sum(sample_s) + sum(update_s)
+    sgd_steps = 8 * (batch.count // 256)
+    out = dict(launches=launches, worker_device=worker_device or "cuda",
+               learner_device="cuda", iterations=PPO_ITERS, env_steps=steps,
+               env_steps_per_s=steps / total,
+               sample_env_steps_per_s=steps / sum(sample_s),
+               sample_ms=1e3 * float(np.median(sample_s)),
+               update_ms=1e3 * float(np.median(update_s)),
+               sgd_steps_per_s=sgd_steps / float(np.median(update_s)),
+               best_reward=best, gate_iteration=first,
+               rewards=[round(r, 2) for r in rewards])
+    print(f"[{tag}] workers on {out['worker_device']}, learner on the card: "
+          f"{PPO_ITERS} iterations, {steps} env steps in {total:.2f} s = "
+          f"{out['env_steps_per_s']:.1f} env steps/s (sampling alone "
+          f"{out['sample_env_steps_per_s']:.1f}); median iteration: sample "
+          f"{out['sample_ms']:.1f} ms, update {out['update_ms']:.1f} ms "
+          f"({sgd_steps} SGD steps = {out['sgd_steps_per_s']:.1f} SGD "
+          f"steps/s); mean reward by iteration {out['rewards']}; best "
+          f"{best:.2f} (gate {PPO_GATE}, first reached at iteration "
+          f"{first}); flash launches {launches}", flush=True)
+    check(launches == (0, 0, 0, 0),
+          f"[{tag}] PPO launched flash kernels {launches}")
+    check(best >= PPO_GATE, f"[{tag}] PPO failed to learn CartPole within "
+                            f"{PPO_ITERS} iterations: {rewards}")
+    return out, learner, batch, sgd_steps
+
+
+def phase_ppo_cartpole(card):
+    """PPO on CartPole at the JAX package's learning-gate setting, first
+    with the rollout workers on the card, then on the CPU (as the JAX
+    cluster places its rollout actors) with the learner on the card."""
+    run, learner, batch, sgd_steps = _ppo_cartpole(None, "ppo")
+    run["profile"] = _rl_profile(lambda: learner.update(batch), sgd_steps,
+                                 "ppo")
+    cpu, _, _, _ = _ppo_cartpole("cpu", "ppo-cpu-workers")
+    print(f"[ppo] env steps/s: workers on the card "
+          f"{run['env_steps_per_s']:.1f}, workers on the CPU "
+          f"{cpu['env_steps_per_s']:.1f} (learner on the card in both) on "
+          f"{card}", flush=True)
+    return run, cpu
+
+
+def _atari_batch(count, obs_dim, seed):
+    """A seeded train batch of synthetic frames (pixel values k / 255)."""
+    from ray_tpu_torch.rl import SampleBatch
+    from ray_tpu_torch.rl import sample_batch as sb
+    rng = np.random.default_rng(seed)
+    obs = rng.integers(0, 256, (count, obs_dim), dtype=np.uint8)
+    obs = obs.astype(np.float32) / np.float32(255)
+    f32 = lambda x: x.astype(np.float32)
+    vf = f32(rng.standard_normal(count))
+    return SampleBatch({
+        sb.OBS: obs, sb.ACTIONS: f32(rng.integers(0, 4, count)),
+        sb.ACTION_LOGP: f32(np.log(0.25) + 0.1 *
+                            rng.standard_normal(count)),
+        sb.ADVANTAGES: f32(rng.standard_normal(count)),
+        sb.VF_PREDS: vf, sb.VALUE_TARGETS: vf + f32(
+            rng.standard_normal(count)),
+    })
+
+
+def phase_ppo_atari_learner(card):
+    """The CNN learner at Atari frame size: ConvRLModule on 84x84x4 frames
+    (filters (16, 3, 2), (32, 3, 2); hiddens (128,); 4 actions), one
+    PPOLearner.update of a seeded 5,000-frame batch at minibatch 500 for 10
+    epochs, clip 0.1, entropy 0.01 (RLlib's atari-ppo batch, minibatch and
+    epochs). f32 with TF32 off (phase 1's setting). A first update warms
+    up; the second is timed, the third profiled."""
+    from ray_tpu_torch.rl import PPOLearner
+    count, mb, epochs = 5000, 500, 10
+    spec = {"encoder": "cnn", "obs_dim": 84 * 84 * 4, "num_actions": 4,
+            "obs_shape": (84, 84, 4)}
+    t0 = time.perf_counter()
+    batch = _atari_batch(count, spec["obs_dim"], 14)
+    make_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    learner = PPOLearner(spec, clip_param=0.1, entropy_coeff=0.01,
+                         num_sgd_iter=epochs, sgd_minibatch_size=mb, seed=0)
+    n_params = sum(p.numel() for p in learner._leaves)
+    _reset_launch_counts()
+    times, stats = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        stats.append(learner.update(batch))
+        times.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sgd_steps = epochs * (count // mb)
+    check(all(np.isfinite(v) for s in stats for v in s.values()),
+          f"[ppo-atari] non-finite learner stats {stats}")
+    check(launches == (0, 0, 0, 0),
+          f"[ppo-atari] the learner launched flash kernels {launches}")
+    update_ms = times[1] * 1e3
+    out = dict(launches=launches, params=n_params, batch=count,
+               minibatch=mb, epochs=epochs, batch_bytes=batch["obs"].nbytes,
+               update_ms=update_ms, first_update_ms=times[0] * 1e3,
+               samples_per_s=count / times[1],
+               sample_passes_per_s=count * epochs / times[1],
+               sgd_steps_per_s=sgd_steps / times[1], peak_gb=peak_gb,
+               total_loss=stats[1]["total_loss"], stats=stats[1])
+    print(f"[ppo-atari] ConvRLModule 84x84x4, {n_params} params; batch "
+          f"{count} frames ({batch['obs'].nbytes / 1e6:.1f} MB of f32 obs, "
+          f"made in {make_s:.2f} s on the host), minibatch {mb}, {epochs} "
+          f"epochs = {sgd_steps} SGD steps: update {update_ms:.1f} ms "
+          f"(first {times[0] * 1e3:.1f} ms), {out['samples_per_s']:.1f} "
+          f"train-batch samples/s ({out['sample_passes_per_s']:.1f} "
+          f"sample passes/s, {out['sgd_steps_per_s']:.1f} SGD steps/s), "
+          f"peak memory "
+          f"{peak_gb:.3f} GB; stats {stats[1]}; flash launches {launches} "
+          f"on {card}", flush=True)
+    out["profile"] = _rl_profile(lambda: learner.update(batch), sgd_steps,
+                                 "ppo-atari")
+    del learner, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+RL_SMALL = {
+    "mlp": {"obs_dim": 8, "num_actions": 4, "hiddens": (64, 64)},
+    "cnn": {"encoder": "cnn", "obs_dim": 42 * 42 * 4, "num_actions": 4,
+            "obs_shape": (42, 42, 4)},
+    "lstm": {"encoder": "lstm", "obs_dim": 8, "num_actions": 4,
+             "hidden_size": 64},
+    "gtrxl": {"encoder": "gtrxl", "obs_dim": 8, "num_actions": 4,
+              "hidden_size": 64, "num_layers": 2, "num_heads": 4,
+              "memory_len": 8},
+}
+
+
+def _rl_card_vs_cpu(name, spec):
+    """One small f32 module on the card and on the CPU from the same
+    weights -> {check: largest difference}. Flat encoders: logits and
+    values, logp_entropy on fixed actions, then one PPOLearner.update (2 SGD
+    steps) from the same weights and seed. Sequence encoders (the JAX
+    package has no logp_entropy for them, so no PPO learner): apply_seq with
+    dones (logits, values, final state), the distribution's logp and
+    entropy of fixed actions over those logits, and the gradients of a loss
+    over them."""
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.models.convert import rl_params_to_numpy
+    from ray_tpu_torch.rl import PPOLearner, SampleBatch, make_module
+    from ray_tpu_torch.rl import sample_batch as sb
+    from ray_tpu_torch.rl.learner import _named_leaves
+    from ray_tpu_torch.rl.rollout import place_params
+
+    def leaves(tree):
+        return list(_named_leaves(tree).values())
+    module = make_module(spec)
+    rng = np.random.default_rng(15)
+    cpu = module.init(torch.Generator().manual_seed(15), device="cpu")
+    card = place_params(cpu, module, resolve_device(None))
+    results = []
+    if name in ("mlp", "cnn"):
+        B = 64
+        obs = rng.standard_normal((B, spec["obs_dim"])).astype(np.float32)
+        actions = rng.integers(0, 4, B).astype(np.float32)
+        batch = SampleBatch({
+            sb.OBS: obs, sb.ACTIONS: actions,
+            sb.ACTION_LOGP: (np.log(0.25) + 0.3 * rng.standard_normal(B))
+            .astype(np.float32),
+            sb.ADVANTAGES: rng.standard_normal(B).astype(np.float32),
+            sb.VF_PREDS: rng.standard_normal(B).astype(np.float32),
+            sb.VALUE_TARGETS: rng.standard_normal(B).astype(np.float32)})
+        for params, dev in ((cpu, "cpu"), (card, None)):
+            with torch.no_grad():
+                out = {"logits_values": module.apply(params, obs),
+                       "logp_entropy": module.logp_entropy(params, obs,
+                                                           actions)}
+            learner = PPOLearner(spec, num_sgd_iter=1, sgd_minibatch_size=32,
+                                 seed=15, device=dev)
+            learner.set_weights(rl_params_to_numpy(cpu))
+            stats = learner.update(batch)
+            out["update_stats"] = [torch.tensor(stats[k])
+                                   for k in sorted(stats)]
+            out["update_params"] = learner.params
+            results.append(out)
+    else:
+        T, B = 16, 8
+        obs = rng.standard_normal((T, B, spec["obs_dim"])).astype(np.float32)
+        dones = (rng.random((T, B)) < 0.2).astype(np.float32)
+        actions = rng.integers(0, 4, (T, B))
+        for params, dev in ((cpu, "cpu"), (card, None)):
+            trainable = leaves(params)
+            for t in trainable:
+                t.requires_grad_(True)
+            logits, values, final = module.apply_seq(
+                params, obs, module.initial_state(B, device=dev), dones)
+            logp, ent = module.dist_logp_entropy(logits, actions)
+            loss = -logp.mean() + values.square().mean() - 0.01 * ent.mean()
+            results.append({"logits_values_state": (logits, values, final),
+                            "logp_entropy": (logp, ent),
+                            "grads": torch.autograd.grad(loss, trainable)})
+    want, got = results
+    diffs = {}
+    for k in want:
+        g, w = leaves(got[k]), leaves(want[k])
+        check(len(g) == len(w), f"{name} {k}: the trees differ")
+        diffs[k] = max((a.detach().cpu() - b.detach()).abs().max().item()
+                       for a, b in zip(g, w))
+    return diffs
+
+
+def phase_small_rl():
+    """Small f32 RL modules (MLP, CNN, LSTM and GTrXL with dones) on the
+    card, TF32 off, against the CPU."""
+    out = {}
+    with _tf32_off():
+        for name, spec in RL_SMALL.items():
+            out[name] = _rl_card_vs_cpu(name, spec)
+            print(f"[reference] small f32 {name} card vs CPU: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in out[name].items())
+                + f" (tol {RL_TOL_F32})", flush=True)
+    check(max(v for d in out.values() for v in d.values()) <= RL_TOL_F32,
+          "small RL modules: card disagrees with the CPU")
+    return out
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -1536,6 +1856,10 @@ def main() -> int:
     phase_small_moe_and_vit()
     runs["resnet_train"] = phase_resnet_training(card)
     runs["resnet_train"]["small_f32_vs_cpu"] = phase_small_resnet()
+    runs["ppo_cartpole"], runs["ppo_cartpole_cpu_workers"] = \
+        phase_ppo_cartpole(card)
+    runs["ppo_atari_learner"] = phase_ppo_atari_learner(card)
+    runs["ppo_cartpole"]["small_f32_vs_cpu"] = phase_small_rl()
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

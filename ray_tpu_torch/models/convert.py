@@ -4,11 +4,12 @@
 returns (dense, or with the stacked ``moe`` subtree of an MoE model),
 ``vit_params_from_jax`` the tree of ``ray_tpu.models.vit_init`` and
 ``resnet_variables_from_jax`` the ``{"params", "batch_stats"}`` tree of a
-flax ``ResNet``, with every leaf already turned into a numpy array by the
-caller (for example ``jax.tree.map(np.asarray, params)``). Each returns the
-port's dict: the same keys, as torch tensors, in the same layout except the
-ResNet's conv kernels (HWIO to OIHW). Both stacks then compute the same
-function. This module imports no JAX.
+flax ``ResNet`` and ``rl_params_from_jax`` the tree of an RL catalog
+module (``ray_tpu.rl.module``), with every leaf already turned into a numpy
+array by the caller (for example ``jax.tree.map(np.asarray, params)``).
+Each returns the port's tree: the same keys, as torch tensors, in the same
+layout except the conv kernels (HWIO to OIHW). Both stacks then compute the
+same function. This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -63,14 +64,22 @@ def vit_params_from_jax(tree, cfg, device=None) -> Dict[str, Any]:
 
 
 def _shapes(tree, shape=np.shape, path=""):
-    """{"a/b/c": shape(leaf)} of a tree's leaves."""
+    """{"a/0/c": shape(leaf)} of a tree's leaves (dicts and lists)."""
     out = {}
-    for k, v in tree.items():
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
             out.update(_shapes(v, shape, f"{path}{k}/"))
         else:
             out[f"{path}{k}"] = tuple(shape(v))
     return out
+
+
+def _shape_diff(have, want) -> str:
+    diff = sorted(f"{k}: {have.get(k, 'missing')}, want {want.get(k, 'none')}"
+                  for k in have.keys() | want.keys()
+                  if have.get(k) != want.get(k))
+    return "; ".join(diff[:6]) + (" ..." if len(diff) > 6 else "")
 
 
 def resnet_variables_from_jax(variables, model: Optional[ResNet] = None,
@@ -91,15 +100,58 @@ def resnet_variables_from_jax(variables, model: Optional[ResNet] = None,
 
     tree = to_port({k: variables.get(k, {}) for k in ("params",
                                                      "batch_stats")})
-    have = _shapes(tree)
-    want = _shapes(model.variable_shapes(), shape=tuple)
-    diff = sorted(f"{k}: {have.get(k, 'missing')}, want "
-                  f"{want.get(k, 'none')}"
-                  for k in have.keys() | want.keys()
-                  if have.get(k) != want.get(k))
+    diff = _shape_diff(_shapes(tree),
+                       _shapes(model.variable_shapes(), shape=tuple))
     if diff:
         raise ValueError(
             f"the variables are not those of ResNet(stage_sizes="
             f"{model.stage_sizes}, num_classes={model.num_classes}): "
-            + "; ".join(diff[:6]) + (" ..." if len(diff) > 6 else ""))
+            + diff)
     return _convert(tree, dev, torch.float32)
+
+
+def _map_rl(tree, fn, key=None):
+    """``fn(key, leaf)`` over an RL params tree (dicts and lists), with the
+    leaf's own key."""
+    if isinstance(tree, dict):
+        return {k: _map_rl(v, fn, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_rl(v, fn, key) for v in tree]
+    return fn(key, tree)
+
+
+def _conv_kernel(key, leaf) -> bool:
+    return key == "w" and np.ndim(leaf) == 4
+
+
+def rl_params_from_jax(params, module, device=None):
+    """The params tree of a ``ray_tpu.rl.module`` catalog module (numpy
+    leaves, as ``ray_tpu.rl.learner.PPOLearner.get_weights`` returns it) ->
+    the port's f32 tree for ``module`` (a ``ray_tpu_torch.rl.module`` module
+    of the same sizes) on the device. The keys stay; the conv kernels go from
+    HWIO to OIHW, once. The heads' first layer keeps its rows: the port's
+    ``ConvRLModule`` flattens its features in the JAX module's NHWC order.
+    A tree whose shapes do not fit the module raises, naming the leaves."""
+    dev = resolve_device(device)
+    tree = _map_rl(params, lambda k, v: np.ascontiguousarray(
+        np.transpose(v, (3, 2, 0, 1))) if _conv_kernel(k, v)
+        else np.asarray(v))
+    want = _shapes(module.init(torch.Generator(), device="cpu"),
+                   shape=lambda t: t.shape)
+    diff = _shape_diff(_shapes(tree), want)
+    if diff:
+        raise ValueError(f"the params do not fit {type(module).__name__}: "
+                         + diff)
+    return _map_rl(tree, lambda k, v: torch.from_numpy(np.array(v)).to(
+        device=dev, dtype=torch.float32))
+
+
+def rl_params_to_numpy(params):
+    """The port's RL params tree -> numpy leaves in the JAX package's layout
+    (HWIO conv kernels): what ``rl_params_from_jax`` and the JAX package's
+    ``set_weights`` take."""
+    def leaf(k, v):
+        a = v.detach().to("cpu", copy=True).numpy()   # never the live tensor
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) \
+            if _conv_kernel(k, a) else a
+    return _map_rl(params, leaf)

@@ -10,6 +10,7 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import models as tmodels
+from ray_tpu_torch import rl as trl
 from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.ops import _build
 
@@ -47,7 +48,12 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/models/vit.py",
                    "ray_tpu_torch/models/resnet.py",
                    "ray_tpu_torch/models/mlp.py",
-                   "ray_tpu_torch/ops/flash.py", "chip_smoke.py"):
+                   "ray_tpu_torch/ops/flash.py",
+                   "ray_tpu_torch/rl/__init__.py",
+                   "ray_tpu_torch/rl/sample_batch.py",
+                   "ray_tpu_torch/rl/env.py", "ray_tpu_torch/rl/module.py",
+                   "ray_tpu_torch/rl/rollout.py",
+                   "ray_tpu_torch/rl/learner.py", "chip_smoke.py"):
         assert module in names
 
 
@@ -90,7 +96,15 @@ ENTRY_POINTS = {
     "make_resnet_train_step": lambda cfg: ttrain.make_resnet_train_step(),
     "mlp_init": lambda cfg: tmodels.mlp_init(torch.Generator(), [4, 2]),
     "mlp_apply": lambda cfg: tmodels.mlp_apply([], torch.zeros(1, 4)),
+    "rl_module_init": lambda cfg: trl.make_module(RL_SPEC).init(
+        torch.Generator()),
+    "PPOLearner": lambda cfg: trl.PPOLearner(RL_SPEC),
+    "RolloutWorker": lambda cfg: trl.RolloutWorker(
+        "CartPole-v1", RL_SPEC, 4, 2, 0.99, 0.95),
+    "rl_params_from_jax": lambda cfg: trl.rl_params_from_jax(
+        {}, trl.make_module(RL_SPEC)),
 }
+RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
                         d_model=32, n_layers=1, n_heads=2)
 
