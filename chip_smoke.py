@@ -103,6 +103,24 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off) against the CPU: logits, values, final states, logp and
    entropy of fixed actions, one PPOLearner.update (MLP, CNN) or the
    gradients of a loss over a sequence (LSTM, GTrXL).
+16. PPO through its drivers: ``ray_tpu_torch.init()``, then
+   ``PPOConfig()`` at phase 13's gate settings, built with ``device`` left
+   at ``None``: the rollout workers and the learner run as actors of the
+   port's in-process runtime, their parameters on the card. Train until the
+   best mean reward reaches 120, at most 25 iterations (failing the gate
+   fails the run); env steps/s (the sum of ``num_env_steps_sampled`` over
+   the sum of ``time_this_iter_s``) and the median iteration ms with its
+   sample and update parts, beside phase 13's hand loop over as many
+   iterations in this same run and beside the hand loop run once more just
+   before the drivers (the process's later state: an update reads slower
+   after phase 13's profiled one), with the ratios. Then ``save``, the
+   learner as a remote actor holding one card for 3 iterations (finite
+   stats), and a fresh ``build()`` that ``restore`` s the checkpoint:
+   bitwise-equal weights, the same iteration, one more ``train()``; and one
+   sampling round of both workers at fixed weights, in turn in one thread
+   against two runtime actors at once. No flash kernel runs (every count
+   stays 0), and ``ray_tpu_torch.shutdown()`` must return with no thread
+   of the runtime left.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -1615,6 +1633,8 @@ def _ppo_cartpole(worker_device, tag):
     sgd_steps = 8 * (batch.count // 256)
     out = dict(launches=launches, worker_device=worker_device or "cuda",
                learner_device="cuda", iterations=PPO_ITERS, env_steps=steps,
+               iteration_s=[a + b for a, b in zip(sample_s, update_s)],
+               sample_s=sample_s, update_s=update_s,
                env_steps_per_s=steps / total,
                sample_env_steps_per_s=steps / sum(sample_s),
                sample_ms=1e3 * float(np.median(sample_s)),
@@ -1651,6 +1671,225 @@ def phase_ppo_cartpole(card):
           f"{cpu['env_steps_per_s']:.1f} (learner on the card in both) on "
           f"{card}", flush=True)
     return run, cpu
+
+
+# ---------------------------------------------------------------------------
+# phase 16
+# ---------------------------------------------------------------------------
+
+def _gate_config(**resources):
+    """PPOConfig at the JAX package's learning gate (phase 13's settings)."""
+    from ray_tpu_torch.rl.algorithms import PPOConfig
+    return (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=16,
+                      rollout_fragment_length=64)
+            .training(lr=3e-4, num_sgd_iter=8, sgd_minibatch_size=256,
+                      entropy_coeff=0.01)
+            .debugging(seed=0).resources(**resources))
+
+
+def _driver_devices(algo):
+    """Where the learner's and each rollout worker's parameters live, read
+    through the in-process runtime's actor table."""
+    from ray_tpu_torch.core import api
+    actors = api._runtime._actors
+    group = algo.learner_group
+    learner = (actors[group.actor.actor_id].instance if group.remote
+               else group.local)
+    workers = [actors[w.actor_id].instance for w in algo.workers.workers]
+    return [str(x.params["pi"][0]["w"].device) for x in [learner, *workers]]
+
+
+def _time_driver_parts(algo):
+    """Host seconds of each iteration's sampling round (both workers,
+    through the runtime) and learner update, as phase 13 splits its hand
+    loop: wraps the instance's ``workers.sample`` and
+    ``learner_group.update``."""
+    spent = {"sample": [], "update": []}
+
+    def timed(fn, part):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            spent[part].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    algo.workers.sample = timed(algo.workers.sample, "sample")
+    algo.learner_group.update = timed(algo.learner_group.update, "update")
+    return spent
+
+
+def _hand_over(run, n):
+    """A hand loop's (``_ppo_cartpole``) rate and median parts over its
+    first ``n`` iterations."""
+    its = run["iteration_s"][:n]
+    return dict(env_steps_per_s=2048 * n / sum(its),
+                iteration_ms=1e3 * float(np.median(its)),
+                sample_ms=1e3 * float(np.median(run["sample_s"][:n])),
+                update_ms=1e3 * float(np.median(run["update_s"][:n])))
+
+
+def _sampling_rounds(rt, n=12):
+    """Median ms of one sampling round of phase 13's two workers at fixed
+    weights: in turn in this thread, and as two actors of the runtime
+    sampling at once (as ``WorkerSet.sample`` does)."""
+    from ray_tpu_torch.rl import PPOLearner, RolloutWorker
+    weights = PPOLearner(PPO_SPEC, seed=0).get_weights()
+    args = ("CartPole-v1", PPO_SPEC, 64, 16, 0.99, 0.95)
+    local = [RolloutWorker(*args, seed=1000 * (i + 1)) for i in range(2)]
+    actor_cls = rt.remote(RolloutWorker)
+    actors = [actor_cls.remote(*args, seed=1000 * (i + 1)) for i in range(2)]
+    ref = rt.put(weights)
+
+    def median_ms(fn):
+        fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(times))
+
+    out = dict(in_turn_ms=median_ms(lambda: [w.sample(weights)
+                                             for w in local]),
+               actors_ms=median_ms(lambda: rt.get(
+                   [a.sample.remote(ref) for a in actors])))
+    for a in actors:
+        rt.kill(a)
+    return out
+
+
+def _check_finite_info(result, tag):
+    info = {k: v for k, v in result.items() if k.startswith("info/")}
+    check(info and all(np.isfinite(v) for v in info.values()),
+          f"[{tag}] non-finite or missing learner stats {info}")
+
+
+def phase_ppo_drivers(card, hand):
+    """PPO through ``PPOConfig().build().train()`` on the card, against
+    phase 13's hand loop (``hand``) from this same run and the hand loop
+    run again just before."""
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.core.runtime_local import THREAD_PREFIX
+    from ray_tpu_torch.rl.learner import _named_leaves as rl_leaves
+    tag = "ppo-drivers"
+    # the hand loop once more in the process's present state (phase 13's
+    # profiled update and later phases ran since), for a like-for-like ratio
+    before, _, _, _ = _ppo_cartpole(None, "ppo-hand-before-drivers")
+    rt.init()
+    _reset_launch_counts()
+    try:
+        algo = _gate_config().build()
+        spent = _time_driver_parts(algo)
+        results, best = [], 0.0
+        for _ in range(PPO_ITERS):
+            result = algo.train()
+            _check_finite_info(result, tag)
+            results.append(result)
+            r = result["episode_reward_mean"]
+            if not np.isnan(r):
+                best = max(best, r)
+            if best >= PPO_GATE:
+                break
+        devices = _driver_devices(algo)
+        check(all(d.startswith("cuda") for d in devices),
+              f"[{tag}] learner and workers not on the card: {devices}")
+        rewards = [round(r["episode_reward_mean"], 2) for r in results]
+        check(best >= PPO_GATE, f"[{tag}] PPO failed to learn CartPole "
+                                f"within {PPO_ITERS} iterations: {rewards}")
+        n = len(results)
+        steps = sum(r["num_env_steps_sampled"] for r in results)
+        secs = sum(r["time_this_iter_s"] for r in results)
+        out = dict(
+            worker_device=devices[1], learner_device=devices[0],
+            iterations=n, env_steps=steps, env_steps_per_s=steps / secs,
+            iteration_ms=1e3 * float(np.median(
+                [r["time_this_iter_s"] for r in results])),
+            sample_ms=1e3 * float(np.median(spent["sample"])),
+            update_ms=1e3 * float(np.median(spent["update"])),
+            best_reward=best, gate_iteration=n, rewards=rewards,
+            hand_phase13=_hand_over(hand, n),
+            hand_before=_hand_over(before, n))
+        for k in ("hand_phase13", "hand_before"):
+            out[k]["ratio"] = (out["env_steps_per_s"]
+                               / out[k]["env_steps_per_s"])
+        print(f"[{tag}] PPOConfig().build().train() with the learner and 2 "
+              f"workers on {devices}: gate met at iteration {n} (best "
+              f"{best:.2f}); {steps} env steps in {secs:.2f} s = "
+              f"{out['env_steps_per_s']:.1f} env steps/s, median iteration "
+              f"{out['iteration_ms']:.1f} ms (sample {out['sample_ms']:.1f}, "
+              f"update {out['update_ms']:.1f}); mean reward by iteration "
+              f"{rewards} on {card}", flush=True)
+        for k, what in (("hand_phase13", "phase 13's hand loop"),
+                        ("hand_before", "the hand loop just before")):
+            h = out[k]
+            print(f"[{tag}] {what}, its first {n} iterations in this run: "
+                  f"{h['env_steps_per_s']:.1f} env steps/s, median "
+                  f"iteration {h['iteration_ms']:.1f} ms (sample "
+                  f"{h['sample_ms']:.1f}, update {h['update_ms']:.1f}); "
+                  f"drivers / hand loop = {h['ratio']:.3f}", flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            ckpt = algo.save(tmp)
+            want = algo.get_state()["weights"]
+            iteration = algo.iteration
+            algo.stop()
+            remote = _gate_config(learner_remote=True,
+                                  learner_num_gpus=1).build()
+            for _ in range(3):
+                result = remote.train()
+                _check_finite_info(result, tag + "-remote")
+            remote_devices = _driver_devices(remote)
+            check(all(d.startswith("cuda") for d in remote_devices),
+                  f"[{tag}] remote learner not on the card: "
+                  f"{remote_devices}")
+            remote.stop()
+            out["remote_learner"] = dict(
+                devices=remote_devices, iterations=3,
+                iteration_ms=1e3 * result["time_this_iter_s"],
+                info={k: v for k, v in result.items()
+                      if k.startswith("info/")})
+            print(f"[{tag}] learner_remote=True, learner_num_gpus=1: 3 "
+                  f"iterations on {remote_devices}, last "
+                  f"{out['remote_learner']['iteration_ms']:.1f} ms, stats "
+                  f"{out['remote_learner']['info']}", flush=True)
+            fresh = _gate_config().build()
+            fresh.restore(ckpt)
+        got = rl_leaves(fresh.get_state()["weights"])
+        same = [got[k].tobytes() == v.tobytes()
+                for k, v in rl_leaves(want).items()]
+        check(len(same) == 12 and all(same) and fresh.iteration == iteration,
+              f"[{tag}] restore: {sum(same)} of {len(same)} leaves equal, "
+              f"iteration {fresh.iteration} (saved {iteration})")
+        _check_finite_info(fresh.train(), tag + "-restored")
+        fresh.stop()
+        print(f"[{tag}] save -> fresh build() -> restore: 12 of 12 weight "
+              f"leaves bitwise equal, iteration {iteration}; one more "
+              f"train() at iteration {fresh.iteration}", flush=True)
+        out["sampling_round"] = _sampling_rounds(rt)
+        print(f"[{tag}] one sampling round of both workers at fixed "
+              f"weights (medians of 12): in turn in this thread "
+              f"{out['sampling_round']['in_turn_ms']:.1f} ms, as two "
+              f"runtime actors at once "
+              f"{out['sampling_round']['actors_ms']:.1f} ms", flush=True)
+    finally:
+        t0 = time.perf_counter()
+        rt.shutdown()
+    out["shutdown_s"] = time.perf_counter() - t0
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(THREAD_PREFIX) and t.is_alive()]
+    check(not alive, f"[{tag}] runtime threads alive after shutdown: "
+                     f"{alive}")
+    out["launches"] = _launch_counts()
+    print(f"[{tag}] ray_tpu_torch.shutdown() returned in "
+          f"{out['shutdown_s']:.3f} s, no runtime thread left; flash "
+          f"launches {out['launches']}", flush=True)
+    check(out["launches"] == (0, 0, 0, 0),
+          f"[{tag}] PPO launched flash kernels {out['launches']}")
+    return out
 
 
 def _atari_batch(count, obs_dim, seed):
@@ -1860,6 +2099,7 @@ def main() -> int:
         phase_ppo_cartpole(card)
     runs["ppo_atari_learner"] = phase_ppo_atari_learner(card)
     runs["ppo_cartpole"]["small_f32_vs_cpu"] = phase_small_rl()
+    runs["ppo_drivers"] = phase_ppo_drivers(card, runs["ppo_cartpole"])
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

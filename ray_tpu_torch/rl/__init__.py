@@ -1,19 +1,30 @@
-"""ray_tpu_torch.rl: what PPO computes, ported from ``ray_tpu.rl``.
+"""ray_tpu_torch.rl: PPO ported from ``ray_tpu.rl``.
 
 The RLModule catalog (MLP, CNN, LSTM, GTrXL), the sample batch, the
-vectorized envs, rollout with GAE and the PPO learner, in PyTorch on one
-device (``device=None`` = the CUDA card). The drivers (``WorkerSet``,
-``LearnerGroup``, ``Algorithm``, ``PPO``) wait for the port's copy of the
-runtime; until then a caller runs the workers and the learner in-process in
-``PPO.training_step``'s order: sample, ``SampleBatch.concat_samples``,
-``PPOLearner.update``, ``get_weights`` back to the workers.
+vectorized envs, rollout with GAE, the PPO learner and its drivers
+(``LearnerGroup``, ``WorkerSet``, ``Algorithm``, ``AlgorithmConfig``; ``PPO``
+and ``PPOConfig`` in ``ray_tpu_torch.rl.algorithms``), in PyTorch. The
+drivers run the rollout workers and the learner as actors of the port's
+in-process runtime, all on one device (``None`` = the CUDA card):
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl.algorithms import PPOConfig
+
+    rt.init()
+    algo = (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=16)
+            .build())                    # .resources(device="cpu") for the CPU
+    result = algo.train()                # result["episode_reward_mean"], ...
+    algo.stop()
+    rt.shutdown()
 """
 
 from ray_tpu_torch.models.convert import rl_params_from_jax
 from ray_tpu_torch.rl.env import (CartPoleVectorEnv, GymVectorEnv,
                                   MultiAgentEnv, PendulumVectorEnv,
                                   VectorEnv, make_env)
-from ray_tpu_torch.rl.learner import PPOLearner
+from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig, WorkerSet
+from ray_tpu_torch.rl.learner import LearnerGroup, PPOLearner
 from ray_tpu_torch.rl.module import (AttentionRLModule, ConvRLModule,
                                      RecurrentRLModule, RLModule,
                                      make_module)
@@ -24,4 +35,5 @@ __all__ = ["VectorEnv", "CartPoleVectorEnv", "PendulumVectorEnv",
            "GymVectorEnv", "MultiAgentEnv", "make_env", "RLModule",
            "ConvRLModule", "RecurrentRLModule", "AttentionRLModule",
            "make_module", "RolloutWorker", "compute_gae", "SampleBatch",
-           "PPOLearner", "rl_params_from_jax"]
+           "PPOLearner", "LearnerGroup", "WorkerSet", "Algorithm",
+           "AlgorithmConfig", "rl_params_from_jax"]

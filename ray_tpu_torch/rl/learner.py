@@ -8,8 +8,9 @@ std). The optimizer is optax's ``chain(clip_by_global_norm, adam)``:
 betas (0.9, 0.999), eps 1e-8, no weight decay). Minibatches follow the JAX
 learner's numpy ``default_rng(seed)``: one ``permutation`` an epoch, the
 remainder dropped, so both learners given the same weights and seed see the
-same rows in the same order. ``LearnerGroup`` and the learner's ``mesh``
-wait for the port's runtime and parallel ops.
+same rows in the same order. ``LearnerGroup`` holds one learner, in this
+thread or as an actor of the port's runtime; the learner's ``mesh`` waits
+for the port's parallel ops.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import rl_params_to_numpy
 from ray_tpu_torch.rl import sample_batch as sb
@@ -155,3 +157,40 @@ class PPOLearner:
         for name, p in self._named.items():
             p.copy_(new[name])
         return True
+
+
+class LearnerGroup:
+    """One learner, local or remote (parity: learner_group.py:48), ported
+    from ``ray_tpu/rl/learner.py``. The remote mode puts the learner in its
+    own actor holding ``num_gpus``; weight broadcast to rollout workers goes
+    through the object store. ``learner_kwargs["device"]`` (``None`` = the
+    card) is resolved here, before any actor exists, so a machine without a
+    card raises at once."""
+
+    def __init__(self, learner_cls, learner_kwargs: dict, *,
+                 remote: bool = False, num_gpus: float = 0.0):
+        resolve_device(learner_kwargs.get("device"))
+        self.remote = remote
+        if remote:
+            cls = rt.remote(learner_cls)
+            self.actor = cls.options(num_cpus=1, num_gpus=num_gpus).remote(
+                **learner_kwargs)
+        else:
+            self.local = learner_cls(**learner_kwargs)
+
+    def update(self, batch: SampleBatch) -> Dict[str, float]:
+        if self.remote:
+            return rt.get(self.actor.update.remote(batch), timeout=600)
+        return self.local.update(batch)
+
+    def get_weights(self):
+        if self.remote:
+            return rt.get(self.actor.get_weights.remote(), timeout=600)
+        return self.local.get_weights()
+
+    def shutdown(self):
+        if self.remote:
+            try:
+                rt.kill(self.actor)
+            except Exception:
+                pass

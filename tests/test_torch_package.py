@@ -1,5 +1,5 @@
-"""The port's package rules: no JAX, no ray_tpu, no quiet CPU fallback, and a
-kernel build keyed on its sources."""
+"""The port's package rules: no JAX, no ray_tpu, no cloudpickle, no quiet CPU
+fallback, and a kernel build keyed on its sources."""
 
 import ast
 import dataclasses
@@ -12,7 +12,9 @@ import ray_tpu_torch
 from ray_tpu_torch import models as tmodels
 from ray_tpu_torch import rl as trl
 from ray_tpu_torch import train as ttrain
+from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.rl.algorithms import PPOConfig
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -36,7 +38,8 @@ def _imports(path):
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_port_imports_neither_jax_nor_ray_tpu(path):
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "flax", "optax")]
+           if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "flax", "optax",
+                                  "cloudpickle")]
     assert not bad, f"{path.name} imports {bad}"
 
 
@@ -53,7 +56,22 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/rl/sample_batch.py",
                    "ray_tpu_torch/rl/env.py", "ray_tpu_torch/rl/module.py",
                    "ray_tpu_torch/rl/rollout.py",
-                   "ray_tpu_torch/rl/learner.py", "chip_smoke.py"):
+                   "ray_tpu_torch/rl/learner.py",
+                   "ray_tpu_torch/rl/algorithm.py",
+                   "ray_tpu_torch/rl/algorithms/__init__.py",
+                   "ray_tpu_torch/rl/algorithms/ppo.py",
+                   "ray_tpu_torch/config.py",
+                   "ray_tpu_torch/core/__init__.py",
+                   "ray_tpu_torch/core/ids.py",
+                   "ray_tpu_torch/core/exceptions.py",
+                   "ray_tpu_torch/core/refs.py",
+                   "ray_tpu_torch/core/options.py",
+                   "ray_tpu_torch/core/serialization.py",
+                   "ray_tpu_torch/core/task_spec.py",
+                   "ray_tpu_torch/core/remote_function.py",
+                   "ray_tpu_torch/core/actor.py",
+                   "ray_tpu_torch/core/runtime_local.py",
+                   "ray_tpu_torch/core/api.py", "chip_smoke.py"):
         assert module in names
 
 
@@ -103,6 +121,11 @@ ENTRY_POINTS = {
         "CartPole-v1", RL_SPEC, 4, 2, 0.99, 0.95),
     "rl_params_from_jax": lambda cfg: trl.rl_params_from_jax(
         {}, trl.make_module(RL_SPEC)),
+    "PPOConfig.build": lambda cfg: PPOConfig().build(),
+    "LearnerGroup": lambda cfg: trl.LearnerGroup(
+        trl.PPOLearner, {"module_spec": RL_SPEC}),
+    "LearnerGroup(remote=True)": lambda cfg: trl.LearnerGroup(
+        trl.PPOLearner, {"module_spec": RL_SPEC}, remote=True),
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
@@ -114,8 +137,15 @@ def test_device_none_without_cuda_raises(monkeypatch, name):
     _no_cuda(monkeypatch)
     cfg = tmodels.TransformerConfig(vocab_size=16, d_model=32, n_layers=1,
                                     n_heads=2)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        ENTRY_POINTS[name](cfg)
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ENTRY_POINTS[name](cfg)
+        # the drivers raise before they create any actor
+        assert core_api._runtime._actors == {}
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_resolve_device(monkeypatch):

@@ -11,17 +11,23 @@ logits, values and final states; logp and entropy of fixed actions; one
 (LSTM, GTrXL: the JAX package has no ``logp_entropy`` for them, so no PPO
 learner). Tolerance 1e-4: the same f32 products summed in another order,
 through at most 12 recurrent steps and 2 Adam steps. Then draws on the card
-(Gumbel-max from a CUDA generator) and a rollout worker on the card.
+(Gumbel-max from a CUDA generator) and a rollout worker on the card. Last,
+PPO through its drivers (``PPOConfig().build()`` with ``device`` left at
+``None``) in the port's in-process runtime: the learner and the workers on
+the card with finite stats, save and restore, and a shutdown that leaves no
+thread of the runtime alive.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.core.runtime_local import THREAD_PREFIX
 from ray_tpu_torch.models.convert import rl_params_to_numpy
 from ray_tpu_torch.rl import (PPOLearner, RolloutWorker, SampleBatch,
                               make_module)
 from ray_tpu_torch.rl import sample_batch as sb
+from ray_tpu_torch.rl.algorithms import PPOConfig
 from ray_tpu_torch.rl.rollout import place_params
 
 TOL = 1e-4
@@ -176,3 +182,74 @@ def test_rollout_worker_on_the_card(cuda_device, no_tf32):
     assert np.abs(batch[sb.ACTION_LOGP] - logp.numpy()).max() <= TOL
     assert np.abs(batch[sb.VF_PREDS] - value.numpy()).max() <= TOL
     assert batch.count == 256 and np.isfinite(batch[sb.ADVANTAGES]).all()
+
+
+@pytest.fixture
+def port_runtime(cuda_device):
+    import ray_tpu_torch
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    yield ray_tpu_torch
+    ray_tpu_torch.shutdown()
+
+
+def _ppo(**resources):
+    return (PPOConfig().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=8,
+                      rollout_fragment_length=32)
+            .debugging(seed=0).resources(**resources).build())
+
+
+def _param_devices(rt, algo):
+    """The device type of the learner's and each worker's first leaf, read
+    through the in-process runtime's actor table."""
+    actors = rt.core.api._runtime._actors
+    group = algo.learner_group
+    learner = (actors[group.actor.actor_id].instance if group.remote
+               else group.local)
+    workers = [actors[w.actor_id].instance for w in algo.workers.workers]
+    return ([learner.params["pi"][0]["w"].device.type]
+            + [w.params["pi"][0]["w"].device.type for w in workers])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remote", [False, True], ids=["local", "remote"])
+def test_ppo_drivers_on_the_card(port_runtime, remote):
+    algo = _ppo(learner_remote=remote, learner_num_gpus=1 if remote else 0)
+    for i in range(2):
+        result = algo.train()
+        assert result["training_iteration"] == i + 1
+        assert result["num_env_steps_sampled"] == 2 * 8 * 32
+        assert all(np.isfinite(v) for k, v in result.items()
+                   if k.startswith("info/"))
+    assert _param_devices(port_runtime, algo) == ["cuda"] * 3
+    algo.stop()
+
+
+@pytest.mark.cuda
+def test_ppo_save_and_restore_on_the_card(port_runtime, tmp_path):
+    algo = _ppo()
+    algo.train()
+    ckpt = algo.save(str(tmp_path / "ck"))
+    want = algo.get_state()["weights"]
+    algo.stop()
+    fresh = _ppo()
+    fresh.restore(ckpt)
+    assert fresh.iteration == 1
+    got = fresh.get_state()["weights"]
+    for a, b in zip(_leaves(got), _leaves(want)):
+        assert a.tobytes() == b.tobytes()
+    assert fresh.train()["training_iteration"] == 2
+    fresh.stop()
+
+
+@pytest.mark.cuda
+def test_shutdown_leaves_no_runtime_thread_on_the_card(port_runtime):
+    import threading
+    algo = _ppo(learner_remote=True, learner_num_gpus=1)
+    algo.train()
+    algo.stop()
+    port_runtime.shutdown()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(THREAD_PREFIX) and t.is_alive()]
+    assert alive == []
