@@ -121,6 +121,42 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against two runtime actors at once. No flash kernel runs (every count
    stays 0), and ``ray_tpu_torch.shutdown()`` must return with no thread
    of the runtime left.
+17. IMPALA, APPO and A2C on CartPole through their drivers (``device`` left
+   at ``None``: workers and learner on the card). APPO at the JAX
+   package's gate (tests/test_rl_appo_vtrace.py:77: 2 workers x 8 envs x 32
+   steps, train batch 1024, lr 5e-4, seed 0; best mean reward >= 150
+   within 40 iterations): env steps/s, the median iteration with its
+   update ms, the updates an iteration and the share of the driver's time
+   spent waiting in ``rt.wait``; then save, a fresh ``build()`` and
+   ``restore`` with bitwise-equal weights. IMPALA at tests/test_rl.py:129's
+   settings (train batch 512) for 3 iterations of at least 512 env steps
+   with finite stats; A2C to its gate (>= 40 within 35 iterations, 1 worker
+   x 8 envs x 32 steps, batch 256). ``shutdown()`` leaves no runtime thread.
+18. The APPO learner at Atari frame size: phase 14's ConvRLModule (84x84x4,
+   4 actions) on a seeded synthetic structured batch of T 50 x N 10 = 500
+   frames (the fragment length and train batch of RLlib's IMPALA Atari
+   tuned example): 20 updates, the median update ms, samples/s, peak
+   memory, one profiled update's busy share and kernels, and V-trace's own
+   kernels and time at that shape.
+19. Off-policy on the card through the drivers: DQN at tests/test_rl.py:116's
+   settings for 3 iterations (finite TD loss, epsilon falling), SAC to its
+   gate (>= 100 within 40 iterations), TD3 on Pendulum to its assertion
+   (>= -700 within 60, stopping when met) and DDPG for 3 iterations; each
+   with env steps/s, updates/s and the median update ms (windows of 20
+   updates on minibatches from its own buffer, each ending in a
+   synchronize), and a bitwise save -> build() -> restore.
+20. Offline on the card: ``collect_experiences`` with the JAX tests'
+   pole-angle controller (4,000 steps) into a temporary directory, then BC,
+   MARWIL and CQL for 5 iterations each at the JAX tests' settings, with
+   updates/s and a greedy evaluation; CQL must hold ``cql_loss >= 0`` and
+   evaluate to a mean reward >= 60.
+21. Small f32 learners on the card (TF32 off) against the CPU from the same
+   weights and batch, one update each: APPOLearner (V-trace on the card),
+   DQN's TD step, SACLearner, TD3Learner at target_noise=0 and CQL; every
+   parameter and target leaf within 1e-4.
+
+No flash kernel runs on phases 13-21 (the JAX RL stack reaches no Pallas
+kernel): each path's counts must stay 0. Phases 17-21 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -2068,6 +2104,575 @@ def phase_small_rl():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 17-21: RL beyond PPO (IMPALA, APPO, A2C, DQN, SAC, TD3, DDPG and
+# offline RL)
+# ---------------------------------------------------------------------------
+
+# The JAX package's gates (its tier-1 tests): APPO (test_rl_appo_vtrace.py:
+# 77) best mean reward >= 150 within 40 iterations, A2C (test_rl_ddpg_marwil
+# .py:90) >= 40 within 35, SAC (test_rl_sac_offline.py:46) >= 100 within 40,
+# TD3 (test_rl_td3_models.py:45) >= -700 within 60, CQL (test_rl_ddpg_marwil
+# .py:113) an evaluated mean >= 60 with cql_loss >= 0.
+APPO_GATE, APPO_ITERS = 150.0, 40
+# APPO consumes its two workers' batches in the order they arrive, which the
+# threads decide, so one seed gives more than one trajectory: the gate is
+# held in each of APPO_RUNS fresh builds from seed 0.
+APPO_RUNS = 3
+A2C_GATE, A2C_ITERS = 40.0, 35
+SAC_GATE, SAC_ITERS = 100.0, 40
+TD3_GATE, TD3_ITERS = -700.0, 60
+CQL_GATE = 60.0
+
+
+def _runtime_threads():
+    import threading
+
+    from ray_tpu_torch.core.runtime_local import THREAD_PREFIX
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(THREAD_PREFIX) and t.is_alive()]
+
+
+@contextlib.contextmanager
+def _timed_calls(owner, name, spent):
+    """Host seconds of every call of ``owner.name`` in the block, appended
+    to ``spent``."""
+    fn = getattr(owner, name)
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent.append(time.perf_counter() - t0)
+    setattr(owner, name, run)
+    try:
+        yield spent
+    finally:
+        setattr(owner, name, fn)
+
+
+def _train_to(algo, gate, iters, tag, key="episode_reward_mean"):
+    """train() until the best ``key`` reaches ``gate`` (at most ``iters``
+    iterations; missing it fails the run) -> the results."""
+    results, best = [], -math.inf
+    for _ in range(iters):
+        result = algo.train()
+        results.append(result)
+        r = result.get(key)
+        if r is not None and not np.isnan(r):
+            best = max(best, r)
+        if best >= gate:
+            break
+    rewards = [round(float(r.get(key, float("nan"))), 2) for r in results]
+    check(best >= gate, f"[{tag}] best mean reward {best} missed the gate "
+                        f"{gate} within {iters} iterations: {rewards}")
+    return results, best, rewards
+
+
+def _rate(results, steps_key):
+    """Env steps over the iterations' own seconds."""
+    steps = sum(r[steps_key] for r in results)
+    return steps, steps / sum(r["time_this_iter_s"] for r in results)
+
+
+def _bitwise_restore(algo, config, state, tag):
+    """save -> a fresh build() -> restore: every leaf of ``state(algo)``
+    bitwise equal, and the iteration."""
+    import tempfile
+
+    from ray_tpu_torch.rl.learner import _named_leaves
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = algo.save(tmp)
+        fresh = config.copy().build()
+        fresh.restore(ckpt)
+    want, got = _named_leaves(state(algo)), _named_leaves(state(fresh))
+    same = [k in got and np.asarray(got[k]).tobytes() ==
+            np.asarray(v).tobytes() for k, v in want.items()]
+    check(len(same) == len(got) > 0 and all(same)
+          and fresh.iteration == algo.iteration,
+          f"[{tag}] restore: {sum(same)} of {len(want)} leaves equal, "
+          f"iteration {fresh.iteration} (saved {algo.iteration})")
+    fresh.stop()
+    print(f"[{tag}] save -> fresh build() -> restore: {len(same)} of "
+          f"{len(same)} leaves bitwise equal at iteration {algo.iteration}",
+          flush=True)
+    return len(same)
+
+
+def _async_config(cls, **training):
+    return (cls().environment("CartPole-v1")
+            .rollouts(num_rollout_workers=2, num_envs_per_worker=8,
+                      rollout_fragment_length=32)
+            .training(**training).debugging(seed=0))
+
+
+def phase_async_drivers(card):
+    """IMPALA, APPO and A2C on CartPole through ``XConfig().build()
+    .train()`` with ``device`` left at ``None``: workers and learner on the
+    card, as actors of the port's runtime (the learner in the driver's
+    thread)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl.algorithms import A2CConfig, APPOConfig, ImpalaConfig
+    out = {}
+    rt.init()
+    _reset_launch_counts()
+    try:
+        # APPO at its gate, with its driver's time split
+        config = _async_config(APPOConfig, train_batch_size=1024, lr=5e-4)
+        algo = config.build()
+        waits, updates = [], []
+        with _timed_calls(rt, "wait", waits), \
+                _timed_calls(algo.learner, "update", updates):
+            results, best, rewards = _train_to(algo, APPO_GATE, APPO_ITERS,
+                                               "appo")
+        steps, rate = _rate(results, "num_env_steps_sampled")
+        secs = sum(r["time_this_iter_s"] for r in results)
+        n = len(results)
+        out["appo"] = dict(
+            iterations=n, env_steps=steps, env_steps_per_s=rate,
+            iteration_ms=1e3 * float(np.median(
+                [r["time_this_iter_s"] for r in results])),
+            update_ms=1e3 * float(np.median(updates)),
+            updates_per_iteration=len(updates) / n,
+            wait_share=sum(waits) / secs, best_reward=best, rewards=rewards,
+            device=str(algo.learner.params["pi"][0]["w"].device))
+        check(out["appo"]["device"].startswith("cuda"),
+              "[appo] the learner is not on the card")
+        print(f"[appo] APPOConfig().build().train(): gate met at iteration "
+              f"{n} (best {best:.2f}); {steps} env steps in {secs:.2f} s = "
+              f"{rate:.1f} env steps/s; median iteration "
+              f"{out['appo']['iteration_ms']:.1f} ms, "
+              f"{out['appo']['updates_per_iteration']:.2f} updates an "
+              f"iteration of median {out['appo']['update_ms']:.2f} ms; "
+              f"share of the driver's time waiting in rt.wait "
+              f"{out['appo']['wait_share']:.4f}; rewards {rewards} on {card}",
+              flush=True)
+        out["appo"]["restored_leaves"] = _bitwise_restore(
+            algo, config, lambda a: a.get_state()["weights"], "appo")
+        algo.stop()
+        # the same gate in fresh builds from the same seed
+        out["appo"]["repeats"] = []
+        for k in range(2, APPO_RUNS + 1):
+            algo = config.build()
+            results, best, rewards = _train_to(algo, APPO_GATE, APPO_ITERS,
+                                               f"appo run {k}")
+            algo.stop()
+            out["appo"]["repeats"].append(dict(
+                iterations=len(results), best_reward=best, rewards=rewards))
+            print(f"[appo] run {k} of {APPO_RUNS} from seed 0: gate met at "
+                  f"iteration {len(results)} (best {best:.2f}); rewards "
+                  f"{rewards}", flush=True)
+        # IMPALA at tests/test_rl.py:129's settings
+        algo = _async_config(ImpalaConfig, train_batch_size=512).build()
+        results = [algo.train() for _ in range(3)]
+        for r in results:
+            _check_finite_info(r, "impala")
+            check(r["num_env_steps_sampled"] >= 512,
+                  f"[impala] {r['num_env_steps_sampled']} env steps")
+        steps, rate = _rate(results, "num_env_steps_sampled")
+        out["impala"] = dict(iterations=3, env_steps=steps,
+                             env_steps_per_s=rate)
+        info = {k: round(v, 4) for k, v in results[-1].items()
+                if k.startswith("info/")}
+        print(f"[impala] 3 iterations, {steps} env steps, {rate:.1f} env "
+              f"steps/s, stats {info}", flush=True)
+        algo.stop()
+        # A2C to its gate: 1 worker x 8 envs x 32 steps, batch 256
+        algo = (_async_config(A2CConfig, train_batch_size=256)
+                .rollouts(num_rollout_workers=1).build())
+        results, best, rewards = _train_to(algo, A2C_GATE, A2C_ITERS, "a2c")
+        steps, rate = _rate(results, "num_env_steps_sampled")
+        out["a2c"] = dict(iterations=len(results), env_steps=steps,
+                          env_steps_per_s=rate, best_reward=best,
+                          rewards=rewards)
+        print(f"[a2c] gate {A2C_GATE} met at iteration {len(results)} (best "
+              f"{best:.2f}); {rate:.1f} env steps/s", flush=True)
+        algo.stop()
+    finally:
+        rt.shutdown()
+    alive = _runtime_threads()
+    check(not alive, f"[appo] runtime threads alive after shutdown: {alive}")
+    launches = _launch_counts()
+    check(launches == (0, 0, 0, 0),
+          f"[appo] the async drivers launched flash kernels {launches}")
+    for k in out:
+        out[k]["launches"] = launches
+    return out
+
+
+def _atari_structured(T, N, obs_dim, seed):
+    """A seeded structured batch of synthetic frames (pixel values k / 255)
+    in time-major [T * N] rows, as a worker's ``sample(structured=True)``."""
+    from ray_tpu_torch.rl import SampleBatch
+    from ray_tpu_torch.rl import sample_batch as sb
+    rng = np.random.default_rng(seed)
+    frames = lambda n: rng.integers(0, 256, (n, obs_dim), dtype=np.uint8
+                                    ).astype(np.float32) / np.float32(255)
+    batch = SampleBatch({
+        sb.OBS: frames(T * N),
+        sb.ACTIONS: rng.integers(0, 4, T * N).astype(np.float32),
+        sb.REWARDS: (rng.random(T * N) < 0.05).astype(np.float32),
+        sb.DONES: (rng.random(T * N) < 0.01).astype(np.float32),
+        sb.ACTION_LOGP: (np.log(0.25) + 0.1 * rng.standard_normal(T * N))
+        .astype(np.float32)})
+    batch.rollout_shape = (T, N)
+    batch.last_obs = frames(N)
+    return batch
+
+
+def phase_appo_atari_learner(card):
+    """The APPO learner at Atari frame size: ConvRLModule on 84x84x4 frames
+    (phase 14's module, 4 actions), 20 updates of one seeded structured
+    batch of T 50 x N 10 = 500 frames (the fragment length and train batch
+    of RLlib's IMPALA Atari tuned example,
+    rllib/tuned_examples/impala/atari-impala.yaml). f32 with TF32 off."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.rl.algorithms.appo import APPOLearner
+    from ray_tpu_torch.rl.vtrace import vtrace_returns
+    T, N = 50, 10
+    spec = {"encoder": "cnn", "obs_dim": 84 * 84 * 4, "num_actions": 4,
+            "obs_shape": (84, 84, 4)}
+    batch = _atari_structured(T, N, spec["obs_dim"], 18)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    learner = APPOLearner(spec, lr=5e-4, entropy_coeff=0.01, seed=0)
+    _reset_launch_counts()
+    times, stats = [], []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        stats.append(learner.update(batch))   # floats: ends in a sync
+        times.append(time.perf_counter() - t0)
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(all(np.isfinite(v) for s in stats for v in s.values()),
+          f"[appo-atari] non-finite learner stats {stats[-1]}")
+    check(launches == (0, 0, 0, 0),
+          f"[appo-atari] the learner launched flash kernels {launches}")
+    update_ms = 1e3 * float(np.median(times[1:]))
+    out = dict(launches=launches, batch=T * N, rollout_shape=[T, N],
+               update_ms=update_ms, first_update_ms=1e3 * times[0],
+               samples_per_s=T * N / (update_ms / 1e3), peak_gb=peak_gb,
+               stats=stats[-1])
+    print(f"[appo-atari] ConvRLModule 84x84x4, structured batch T {T} x N "
+          f"{N} = {T * N} frames: median update {update_ms:.2f} ms over 19 "
+          f"(first {out['first_update_ms']:.1f} ms), "
+          f"{out['samples_per_s']:.1f} samples/s, peak memory "
+          f"{peak_gb:.3f} GB; stats {stats[-1]}; flash launches {launches} "
+          f"on {card}", flush=True)
+    out["profile"] = _rl_profile(lambda: learner.update(batch), 1,
+                                 "appo-atari")
+    # V-trace's own kernels at this shape
+    dev = learner.device
+    g = torch.Generator(device=dev).manual_seed(0)
+    tn = lambda: torch.randn(T, N, device=dev, generator=g)
+    args = (tn(), tn(), tn(), tn(), (tn() > 2).float(),
+            torch.randn(N, device=dev, generator=g))
+    vtrace_returns(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vtrace_returns(*args)
+        torch.cuda.synchronize()
+    vk = _device_kernels(prof)
+    out["vtrace_kernels"] = len(vk)
+    out["vtrace_device_ms"] = sum(e.time_range.elapsed_us() for e in vk) / 1e3
+    out["vtrace_ms"] = cuda_ms(lambda: vtrace_returns(*args), iters=20)
+    print(f"[appo-atari] vtrace_returns at T {T} x N {N}: "
+          f"{out['vtrace_kernels']} kernels ({T} of them the backward "
+          f"recurrence), {out['vtrace_device_ms']:.4f} ms of device time, "
+          f"{out['vtrace_ms']:.4f} ms by events", flush=True)
+    del learner, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _update_window(step, sample, n=20, windows=5):
+    """Median ms of one update over ``windows`` windows of ``n`` updates,
+    each on a fresh minibatch from the algorithm's own buffer (the numpy
+    draw and the copy to the card included, as in its training step); each
+    window ends in a synchronize."""
+    per = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(sample())
+        torch.cuda.synchronize()
+        per.append((time.perf_counter() - t0) / n)
+    return 1e3 * float(np.median(per))
+
+
+def phase_offpolicy(card):
+    """DQN, SAC, TD3 and DDPG through their drivers on the card (``device``
+    left at ``None``; the collectors are runtime actors, SAC's in the
+    driver's thread), each with env steps/s, the median update ms and
+    updates/s over windows of updates from its own buffer, and a bitwise
+    save -> build() -> restore."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.rl.algorithms import (DDPGConfig, DQNConfig,
+                                             SACConfig, TD3Config)
+    from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
+    from ray_tpu_torch.rl.learner import batch_to_device
+    out = {}
+    rt.init()
+    _reset_launch_counts()
+    try:
+        # DQN at tests/test_rl.py:116's settings, 3 iterations
+        config = (DQNConfig().environment("CartPole-v1")
+                  .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                            rollout_fragment_length=32)
+                  .training(learning_starts=128).debugging(seed=0))
+        algo = config.build()
+        results = [algo.train() for _ in range(3)]
+        eps = [r["epsilon"] for r in results]
+        check(np.isfinite(results[-1]["info/td_loss"]) and eps[-1] < eps[0],
+              f"[dqn] td loss {results[-1]['info/td_loss']}, epsilon {eps}")
+        samp = lambda: batch_to_device(algo.buffer.sample(32), TRANSITION,
+                                       algo.device)
+        out["dqn"] = dict(iterations=3, epsilon=eps,
+                          env_steps_per_s=3 * 256 / sum(
+                              r["time_this_iter_s"] for r in results),
+                          update_ms=_update_window(algo.td_step, samp),
+                          td_loss=results[-1]["info/td_loss"])
+        out["dqn"]["restored_leaves"] = _bitwise_restore(
+            algo, config, lambda a: a.get_state(), "dqn")
+        algo.stop()
+        # SAC to its gate; TD3 to its gate, stopping when met; DDPG 3 its
+        sac_cfg = (SACConfig().environment("CartPole-v1")
+                   .rollouts(num_envs_per_worker=8,
+                             rollout_fragment_length=32).debugging(seed=0))
+        td3_cfg = (TD3Config().environment("Pendulum-v1")
+                   .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                             rollout_fragment_length=64).debugging(seed=0))
+        ddpg_cfg = (DDPGConfig().environment("Pendulum-v1")
+                    .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                              rollout_fragment_length=64).debugging(seed=0))
+        for name, config, gate, iters, state in (
+                ("sac", sac_cfg, SAC_GATE, SAC_ITERS,
+                 lambda a: a.get_state()),
+                ("td3", td3_cfg, TD3_GATE, TD3_ITERS,
+                 lambda a: a.get_state()["learner"]),
+                ("ddpg", ddpg_cfg, None, 3,
+                 lambda a: a.get_state()["learner"])):
+            algo = config.build()
+            t0 = time.perf_counter()
+            if gate is None:
+                results = [algo.train() for _ in range(iters)]
+                best = max(r["episode_reward_mean"] for r in results)
+                rewards = [round(r["episode_reward_mean"], 2)
+                           for r in results]
+                check(all(np.isfinite(r[k]) for r in results[1:]
+                          for k in ("critic_loss", "actor_loss")),
+                      f"[{name}] non-finite losses {results[-1]}")
+            else:
+                results, best, rewards = _train_to(algo, gate, iters, name)
+            wall = time.perf_counter() - t0
+            steps = algo._timesteps_total
+            secs = sum(r["time_this_iter_s"] for r in results)
+            updates = sum(config.updates_per_iter for r in results
+                          if set(r) & {"q_loss", "critic_loss"})
+            device = str(algo.learner.params["q1"][0]["w"].device)
+            check(device.startswith("cuda"), f"[{name}] learner on {device}")
+            samp = (lambda a=algo, c=config: batch_to_device(
+                a.buffer.sample(c.train_batch_size), TRANSITION, a.device))
+            update_ms = _update_window(algo.learner.step, samp)
+            out[name] = dict(iterations=len(results), env_steps=steps,
+                             env_steps_per_s=steps / secs,
+                             updates=updates, updates_per_s_in_training=(
+                                 updates / secs),
+                             update_ms=update_ms,
+                             updates_per_s=1e3 / update_ms,
+                             best_reward=best, rewards=rewards,
+                             wall_s=wall, device=device)
+            print(f"[{name}] {len(results)} iterations (best {best:.2f}"
+                  + (f", gate {gate}" if gate is not None else "")
+                  + f"), {steps} env steps in {secs:.2f} s = "
+                  f"{out[name]['env_steps_per_s']:.1f} env steps/s, "
+                  f"{updates} updates = "
+                  f"{out[name]['updates_per_s_in_training']:.1f} updates/s "
+                  f"of training time; median update "
+                  f"{update_ms:.3f} ms ({out[name]['updates_per_s']:.1f} "
+                  f"updates/s, windows of 20 from the buffer); rewards "
+                  f"{rewards} on {card}", flush=True)
+            out[name]["restored_leaves"] = _bitwise_restore(
+                algo, config, state, name)
+            algo.stop()
+        print(f"[dqn] 3 iterations, epsilon {eps}, td loss "
+              f"{out['dqn']['td_loss']:.4f}, "
+              f"{out['dqn']['env_steps_per_s']:.1f} env steps/s; median TD "
+              f"step {out['dqn']['update_ms']:.3f} ms", flush=True)
+    finally:
+        rt.shutdown()
+    alive = _runtime_threads()
+    check(not alive, f"[off-policy] runtime threads alive after shutdown: "
+                     f"{alive}")
+    launches = _launch_counts()
+    check(launches == (0, 0, 0, 0),
+          f"[off-policy] launched flash kernels {launches}")
+    for k in out:
+        out[k]["launches"] = launches
+    return out
+
+
+def phase_offline(card):
+    """collect_experiences with the JAX tests' pole-angle controller (4,000
+    steps) into a temporary directory, then BC, MARWIL (150 updates an
+    iteration, lr 3e-3) and CQL (200 updates, lr 5e-4, alpha 1) for 5
+    iterations each on the card, each evaluated greedily on 10 episodes."""
+    import tempfile
+
+    from ray_tpu_torch.rl.algorithms import CQLConfig
+    from ray_tpu_torch.rl.offline import (BCConfig, MARWILConfig,
+                                          collect_experiences)
+    out = {}
+    _reset_launch_counts()
+    with tempfile.TemporaryDirectory() as path:
+        collect_experiences(
+            "CartPole-v1", path, num_steps=4000, seed=0,
+            policy_fn=lambda obs: (obs[:, 2] + 0.5 * obs[:, 3] > 0)
+            .astype(int))
+        for name, cls, training in (
+                ("bc", BCConfig, dict(updates_per_iter=150, lr=3e-3)),
+                ("marwil", MARWILConfig,
+                 dict(updates_per_iter=150, lr=3e-3, beta=1.0)),
+                ("cql", CQLConfig,
+                 dict(updates_per_iter=200, lr=5e-4, alpha=1.0))):
+            algo = cls().offline_data(input_path=path).training(
+                **training).build()
+            times = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                stats = algo.train()        # floats: ends in a sync
+                times.append(time.perf_counter() - t0)
+            ev = algo.evaluate(num_episodes=10)["episode_reward_mean"]
+            check(np.isfinite(stats["total_loss"]),
+                  f"[{name}] non-finite stats {stats}")
+            n = training["updates_per_iter"]
+            out[name] = dict(updates_per_s=n / float(np.median(times[1:])),
+                             first_iteration_s=times[0], evaluated=ev,
+                             stats=stats)
+            print(f"[{name}] 5 iterations of {n} updates: "
+                  f"{out[name]['updates_per_s']:.1f} updates/s (median of "
+                  f"iterations 2-5; the first {times[0]:.2f} s); evaluated "
+                  f"mean reward {ev:.2f}; stats {stats} on {card}",
+                  flush=True)
+    check(out["cql"]["stats"]["cql_loss"] >= 0
+          and out["cql"]["evaluated"] >= CQL_GATE,
+          f"[cql] cql_loss {out['cql']['stats']['cql_loss']}, evaluated "
+          f"{out['cql']['evaluated']} (gate {CQL_GATE})")
+    launches = _launch_counts()
+    check(launches == (0, 0, 0, 0),
+          f"[offline] launched flash kernels {launches}")
+    for k in out:
+        out[k]["launches"] = launches
+    return out
+
+
+def _small_learners(dev, path):
+    """{name: (learner, its state as numpy, one update of a host batch)}
+    for the small f32 learners of phase 21 on ``dev``."""
+    from ray_tpu_torch.rl.algorithms import CQLConfig, DQNConfig
+    from ray_tpu_torch.rl.algorithms.appo import APPOLearner
+    from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
+    from ray_tpu_torch.rl.algorithms.sac import SACLearner
+    from ray_tpu_torch.rl.algorithms.td3 import TD3Learner
+    from ray_tpu_torch.rl.learner import batch_to_device
+    spec = {"obs_dim": 8, "num_actions": 4, "hiddens": (64, 64)}
+    appo = APPOLearner(spec, lr=1e-3, seed=21, device=dev)
+    dqn = (DQNConfig().rollouts(num_rollout_workers=0).environment(
+        "CartPole-v1").resources(device=dev).build())
+    sac = SACLearner(spec, seed=21, device=dev)
+    td3 = TD3Learner({"obs_dim": 8, "num_actions": -1, "action_dim": 2},
+                     target_noise=0.0, target_noise_clip=0.0, policy_delay=1,
+                     action_low=-2.0, action_high=2.0, seed=21, device=dev)
+    cql = CQLConfig().offline_data(input_path=path).resources(
+        device=dev).build()
+    tens = lambda a, b: batch_to_device(b, TRANSITION, a.device)
+    return {
+        "appo": (appo, appo.get_weights, appo.set_weights, appo.update),
+        "dqn": (dqn, dqn.get_state, dqn.set_state,
+                lambda b: dqn.td_step(tens(dqn, b))),
+        "sac": (sac, sac.get_state, sac.set_state, sac.update),
+        "td3": (td3, td3.state, td3.set_state, td3.update),
+        "cql": (cql, cql.get_state, cql.set_state,
+                lambda b: cql.step(tens(cql, b))),
+    }
+
+
+def _small_batch(name, rng):
+    from ray_tpu_torch.rl import SampleBatch
+    from ray_tpu_torch.rl import sample_batch as sb
+    obs_dim = 4 if name in ("dqn", "cql") else 8
+    if name == "appo":
+        T, N = 16, 8
+        batch = SampleBatch({
+            sb.OBS: rng.standard_normal((T * N, 8)).astype(np.float32),
+            sb.ACTIONS: rng.integers(0, 4, T * N).astype(np.float32),
+            sb.REWARDS: rng.standard_normal(T * N).astype(np.float32),
+            sb.DONES: (rng.random(T * N) < 0.1).astype(np.float32),
+            sb.ACTION_LOGP: (np.log(0.25) + 0.3 * rng.standard_normal(
+                T * N)).astype(np.float32)})
+        batch.rollout_shape = (T, N)
+        batch.last_obs = rng.standard_normal((N, 8)).astype(np.float32)
+        return batch
+    n = 128
+    return SampleBatch({
+        sb.OBS: rng.standard_normal((n, obs_dim)).astype(np.float32),
+        sb.ACTIONS: (rng.uniform(-2, 2, (n, 2)).astype(np.float32)
+                     if name == "td3" else
+                     rng.integers(0, 4 if name == "sac" else 2, n)),
+        sb.REWARDS: rng.standard_normal(n).astype(np.float32),
+        sb.NEXT_OBS: rng.standard_normal((n, obs_dim)).astype(np.float32),
+        sb.DONES: (rng.random(n) < 0.2).astype(np.float32)})
+
+
+def phase_small_offpolicy():
+    """Small f32 learners on the card (TF32 off) against the CPU: from the
+    same weights and batch, one update of APPOLearner (V-trace on the
+    card), DQN's TD step, SACLearner, TD3Learner at target_noise=0 and CQL;
+    the largest difference of any parameter (and target) leaf."""
+    import tempfile
+
+    from ray_tpu_torch.rl.learner import _named_leaves
+    from ray_tpu_torch.rl.offline import collect_experiences
+    out, init_same = {}, {}
+    with tempfile.TemporaryDirectory() as path, _tf32_off():
+        collect_experiences("CartPole-v1", path, num_steps=256, seed=0)
+        cpu, card = _small_learners("cpu", path), _small_learners(None, path)
+        for name in cpu:
+            _, cpu_state, _, cpu_update = cpu[name]
+            _, card_state, card_set, card_update = card[name]
+            # one seed, the same initial weights on the card and the host
+            want, got = (_named_leaves(cpu_state()),
+                         _named_leaves(card_state()))
+            init_same[name] = sorted(want) == sorted(got) and all(
+                np.asarray(got[k]).tobytes() == np.asarray(v).tobytes()
+                for k, v in want.items())
+            card_set(cpu_state())
+            batch = _small_batch(name, np.random.default_rng(21))
+            cpu_update(batch)
+            card_update(batch)
+            want, got = (_named_leaves(cpu_state()),
+                         _named_leaves(card_state()))
+            check(sorted(want) == sorted(got), f"{name}: the trees differ")
+            out[name] = max(float(np.max(np.abs(np.asarray(got[k])
+                                                - np.asarray(v))))
+                            for k, v in want.items())
+    print("[reference] small f32 learners card vs CPU after one update, "
+          "largest parameter difference: " + ", ".join(
+              f"{k} {v:.3e}" for k, v in out.items())
+          + f" (tol {RL_TOL_F32}); initial weights bitwise equal: "
+          + ", ".join(f"{k} {v}" for k, v in init_same.items()), flush=True)
+    check(all(init_same.values()),
+          f"small RL learners: seeded initial weights differ between the "
+          f"card and the CPU: {init_same}")
+    check(max(out.values()) <= RL_TOL_F32,
+          "small RL learners: card disagrees with the CPU")
+    return out
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -2100,6 +2705,26 @@ def main() -> int:
     runs["ppo_atari_learner"] = phase_ppo_atari_learner(card)
     runs["ppo_cartpole"]["small_f32_vs_cpu"] = phase_small_rl()
     runs["ppo_drivers"] = phase_ppo_drivers(card, runs["ppo_cartpole"])
+    for name, phase in (("async", phase_async_drivers),
+                        ("atari", phase_appo_atari_learner),
+                        ("offpolicy", phase_offpolicy),
+                        ("offline", phase_offline)):
+        t0 = time.perf_counter()
+        out = phase(card)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        if name == "atari":
+            runs["appo_atari_learner"] = out
+        elif name == "offline":
+            runs["offline_cartpole"] = {"launches": out["cql"]["launches"],
+                                        **out}
+        else:
+            runs.update({k + ("_pendulum" if k in ("td3", "ddpg")
+                              else "_cartpole"): v for k, v in out.items()})
+    t0 = time.perf_counter()
+    runs["appo_cartpole"]["small_learners_f32_vs_cpu"] = \
+        phase_small_offpolicy()
+    print(f"[phase] small learners: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

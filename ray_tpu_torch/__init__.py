@@ -2,7 +2,8 @@
 
 The JAX package ``ray_tpu`` stays the reference. This package serves and
 trains the flagship LM, trains the ViT and ResNet-50 (``models``, ``train``)
-and trains RL policies with PPO (``rl``) on an NVIDIA Hopper card (H100)
+and trains RL policies (``rl``: PPO, IMPALA, APPO, A2C, DQN, SAC, TD3,
+DDPG and offline BC, MARWIL and CQL) on an NVIDIA Hopper card (H100)
 through the same entry points as the JAX package, with each TPU kernel
 rewritten by hand in CUDA C++ for ``sm_90a``. Its core API (``init``,
 ``remote``, ``get``, ``put``, ...) is the JAX package's, over the port's own

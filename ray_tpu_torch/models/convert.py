@@ -155,3 +155,20 @@ def rl_params_to_numpy(params):
         return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0))) \
             if _conv_kernel(k, a) else a
     return _map_rl(params, leaf)
+
+
+def rl_tree_from_jax(tree, like, device=None):
+    """A plain params tree of a JAX RL learner (numpy leaves: SAC's ``{pi,
+    q1, q2, log_alpha}``, TD3's ``{actor, q1, q2}``, CQL's ``{q}``, DQN's
+    and the offline learners' module trees) -> the port's f32 tensors on
+    the device, leaf for leaf. ``like`` is the port learner's own tree: every
+    leaf's shape must fit it (a 0-d ``log_alpha`` too), or this raises,
+    naming the leaves that do not."""
+    dev = resolve_device(device)
+    tree = _map_rl(tree, lambda _, v: np.asarray(v))
+    diff = _shape_diff(_shapes(tree),
+                       _shapes(like, shape=lambda t: tuple(t.shape)))
+    if diff:
+        raise ValueError(f"the tree does not fit the learner's: {diff}")
+    return _map_rl(tree, lambda _, v: torch.from_numpy(
+        np.array(v, dtype=np.float32)).to(dev))

@@ -1,11 +1,14 @@
-"""ray_tpu_torch.rl: PPO ported from ``ray_tpu.rl``.
+"""ray_tpu_torch.rl: the single-agent RL library ported from ``ray_tpu.rl``.
 
 The RLModule catalog (MLP, CNN, LSTM, GTrXL), the sample batch, the
-vectorized envs, rollout with GAE, the PPO learner and its drivers
-(``LearnerGroup``, ``WorkerSet``, ``Algorithm``, ``AlgorithmConfig``; ``PPO``
-and ``PPOConfig`` in ``ray_tpu_torch.rl.algorithms``), in PyTorch. The
-drivers run the rollout workers and the learner as actors of the port's
-in-process runtime, all on one device (``None`` = the CUDA card):
+vectorized envs, rollout with GAE, V-trace (``rl.vtrace``), the replay
+buffers, the offline IO with BC and MARWIL (``rl.offline``), the PPO
+learner and the drivers (``LearnerGroup``, ``WorkerSet``, ``Algorithm``,
+``AlgorithmConfig``), and the algorithms in ``ray_tpu_torch.rl.algorithms``
+(PPO, IMPALA, APPO, A2C, DQN, SAC, TD3, DDPG, CQL), in PyTorch. The drivers
+run the rollout workers, collectors and learners as actors of the port's
+in-process runtime or in the driver's thread, all on one device (``None`` =
+the CUDA card):
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl.algorithms import PPOConfig
@@ -19,7 +22,7 @@ in-process runtime, all on one device (``None`` = the CUDA card):
     rt.shutdown()
 """
 
-from ray_tpu_torch.models.convert import rl_params_from_jax
+from ray_tpu_torch.models.convert import rl_params_from_jax, rl_tree_from_jax
 from ray_tpu_torch.rl.env import (CartPoleVectorEnv, GymVectorEnv,
                                   MultiAgentEnv, PendulumVectorEnv,
                                   VectorEnv, make_env)
@@ -28,6 +31,8 @@ from ray_tpu_torch.rl.learner import LearnerGroup, PPOLearner
 from ray_tpu_torch.rl.module import (AttentionRLModule, ConvRLModule,
                                      RecurrentRLModule, RLModule,
                                      make_module)
+from ray_tpu_torch.rl.replay_buffer import (PrioritizedReplayBuffer,
+                                            ReplayBuffer)
 from ray_tpu_torch.rl.rollout import RolloutWorker, compute_gae
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
@@ -36,4 +41,5 @@ __all__ = ["VectorEnv", "CartPoleVectorEnv", "PendulumVectorEnv",
            "ConvRLModule", "RecurrentRLModule", "AttentionRLModule",
            "make_module", "RolloutWorker", "compute_gae", "SampleBatch",
            "PPOLearner", "LearnerGroup", "WorkerSet", "Algorithm",
-           "AlgorithmConfig", "rl_params_from_jax"]
+           "AlgorithmConfig", "ReplayBuffer", "PrioritizedReplayBuffer",
+           "rl_params_from_jax", "rl_tree_from_jax"]

@@ -1,5 +1,9 @@
 """PPOLearner: the clipped-surrogate PPO update on one device. Ported from
-``ray_tpu/rl/learner.py``.
+``ray_tpu/rl/learner.py``. Also the pieces every port learner shares: a
+catalog module's weights with their optimizer (``ModuleLearner``, which the
+APPO learner extends too), optax's ``adam``, and the plain-tree helpers the
+off-policy and offline learners use (``trainable_``, ``clone_tree``,
+``copy_tree_`` from a JAX numpy tree, ``polyak_`` and ``batch_to_device``).
 
 The loss is the JAX learner's (ratio clip, clipped value loss, entropy
 bonus, kl stat; advantages normalised per minibatch with the population
@@ -22,9 +26,10 @@ import torch
 
 import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.convert import rl_params_to_numpy
+from ray_tpu_torch.models.convert import (_map_rl, rl_params_to_numpy,
+                                          rl_tree_from_jax)
 from ray_tpu_torch.rl import sample_batch as sb
-from ray_tpu_torch.rl.module import make_module
+from ray_tpu_torch.rl.module import _first_leaf, make_module
 from ray_tpu_torch.rl.rollout import place_params
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
@@ -42,6 +47,71 @@ def _named_leaves(tree, prefix="") -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in items:
         out.update(_named_leaves(v, f"{prefix}/{k}"))
+    return out
+
+
+def trainable_(tree) -> list:
+    """The leaves of a params tree, each set to require a gradient, in the
+    tree's path order (what an optimizer over the tree takes)."""
+    leaves = list(_named_leaves(tree).values())
+    for p in leaves:
+        p.requires_grad_(True)
+    return leaves
+
+
+def seeded_init(init, seed: int, device):
+    """``init(generator, "cpu")`` drawn from a CPU generator seeded ``seed``,
+    then moved to ``device``: a seed gives the same initial weights on
+    every device, as a JAX ``PRNGKey`` does on every backend (a generator on
+    the card draws other numbers than one on the host)."""
+    tree = init(torch.Generator().manual_seed(seed), "cpu")
+    return _map_rl(tree, lambda _, t: t.to(device))
+
+
+def clone_tree(tree):
+    """A detached copy of a tree of tensors, on the same device."""
+    return _map_rl(tree, lambda _, t: t.detach().clone())
+
+
+@torch.no_grad()
+def copy_tree_(dst, src) -> None:
+    """Copy ``src`` (the port's tensors, or a numpy tree in the JAX layout
+    that ``rl_tree_from_jax`` takes) into ``dst``'s tensors, leaf by path."""
+    leaves = _named_leaves(dst)
+    if not isinstance(_first_leaf(src), torch.Tensor):
+        src = rl_tree_from_jax(src, dst, _first_leaf(dst).device)
+    new = _named_leaves(src)
+    for name, p in leaves.items():
+        p.copy_(new[name])
+
+
+@torch.no_grad()
+def polyak_(target, online, tau: float) -> None:
+    """``target <- target * (1 - tau) + online * tau`` leaf by path, the JAX
+    learners' ``tree_map`` (rounded as it is: two products, then a sum)."""
+    t, o = _named_leaves(target), _named_leaves(online)
+    targets = list(t.values())
+    torch._foreach_mul_(targets, 1.0 - tau)
+    torch._foreach_add_(targets, torch._foreach_mul([o[k] for k in t], tau))
+
+
+def adam(leaves, lr: float) -> torch.optim.Adam:
+    """optax's ``adam(lr)``: betas (0.9, 0.999), eps 1e-8 outside the square
+    root, no weight decay."""
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=0.0)
+
+
+def batch_to_device(batch, keys, device) -> Dict[str, torch.Tensor]:
+    """The columns ``keys`` of a host batch as tensors on ``device``: floats
+    as f32 (the JAX package computes in f32), integers as they are (the
+    discrete actions that index a Q row)."""
+    out = {}
+    for k in keys:
+        a = np.asarray(batch[k])
+        out[k] = torch.as_tensor(a).to(
+            device=device,
+            dtype=None if a.dtype.kind in "iu" else torch.float32)
     return out
 
 
@@ -83,7 +153,46 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
-class PPOLearner:
+class ModuleLearner:
+    """A catalog module's weights and their optimizer on one device
+    (``None`` = the card): optax's ``chain(clip_by_global_norm, adam)`` as
+    ``clip_by_global_norm_`` and ``torch.optim.Adam``. The PPO and APPO
+    learners add their losses."""
+
+    def __init__(self, module_spec: dict, *, lr: float, grad_clip: float,
+                 seed: int, device=None):
+        self.device = resolve_device(device)
+        self.module = make_module(module_spec)
+        self.grad_clip = grad_clip
+        self.params = seeded_init(self.module.init, seed, self.device)
+        self._leaves = trainable_(self.params)
+        self.opt = adam(self._leaves, lr)
+
+    def clipped_step(self, loss, stats) -> Dict[str, torch.Tensor]:
+        """One clipped Adam step on ``loss`` -> ``stats`` and the loss as
+        0-d tensors (no host sync)."""
+        self.opt.zero_grad(set_to_none=False)
+        loss.backward()
+        clip_by_global_norm_([p.grad for p in self._leaves], self.grad_clip)
+        self.opt.step()
+        return {k: v.detach() for k, v in
+                {**stats, "total_loss": loss}.items()}
+
+    def get_weights(self):
+        """The weights on the host as numpy, in the JAX package's layout
+        (HWIO conv kernels): what either stack's ``set_weights`` takes."""
+        return rl_params_to_numpy(self.params)
+
+    def set_weights(self, params) -> bool:
+        """Copy ``params`` (a numpy tree as ``get_weights`` of either stack
+        returns, or the port's tensors) into the learner's; the optimizer's
+        state stays, as in the JAX learner."""
+        copy_tree_(self.params, place_params(params, self.module,
+                                             self.device))
+        return True
+
+
+class PPOLearner(ModuleLearner):
     """Minibatch-SGD PPO on one device (``None`` = the card)."""
 
     def __init__(self, module_spec: dict, *, lr: float = 3e-4,
@@ -91,36 +200,21 @@ class PPOLearner:
                  vf_loss_coeff: float = 0.5, entropy_coeff: float = 0.0,
                  num_sgd_iter: int = 6, sgd_minibatch_size: int = 128,
                  grad_clip: float = 0.5, seed: int = 0, device=None):
-        self.device = resolve_device(device)
-        self.module = make_module(module_spec)
+        super().__init__(module_spec, lr=lr, grad_clip=grad_clip, seed=seed,
+                         device=device)
         self.num_sgd_iter = num_sgd_iter
         self.minibatch_size = sgd_minibatch_size
-        self.grad_clip = grad_clip
         self.loss_kw = dict(clip_param=clip_param,
                             vf_clip_param=vf_clip_param,
                             vf_loss_coeff=vf_loss_coeff,
                             entropy_coeff=entropy_coeff)
         self._rng = np.random.default_rng(seed)
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = self.module.init(gen, device=self.device)
-        self._named = _named_leaves(self.params)
-        self._leaves = list(self._named.values())
-        for p in self._leaves:
-            p.requires_grad_(True)
-        self.opt = torch.optim.Adam(self._leaves, lr=lr, betas=(0.9, 0.999),
-                                    eps=1e-8, weight_decay=0.0)
 
     def sgd_step(self, minibatch) -> Dict[str, torch.Tensor]:
         """One clipped Adam step on a minibatch of device tensors -> its
         stats as 0-d tensors (no host sync)."""
-        loss, stats = ppo_loss(self.module, self.params, minibatch,
-                               **self.loss_kw)
-        self.opt.zero_grad(set_to_none=False)
-        loss.backward()
-        clip_by_global_norm_([p.grad for p in self._leaves], self.grad_clip)
-        self.opt.step()
-        return {k: v.detach() for k, v in
-                {**stats, "total_loss": loss}.items()}
+        return self.clipped_step(*ppo_loss(self.module, self.params,
+                                           minibatch, **self.loss_kw))
 
     def update(self, batch: SampleBatch) -> Dict[str, float]:
         """Minibatch-SGD epochs over one train batch -> the last
@@ -142,21 +236,6 @@ class PPOLearner:
                 idx = perm[start:start + size]
                 stats = self.sgd_step({k: v[idx] for k, v in cols.items()})
         return {k: float(v) for k, v in stats.items()}
-
-    def get_weights(self):
-        """The weights on the host as numpy, in the JAX package's layout
-        (HWIO conv kernels): what either stack's ``set_weights`` takes."""
-        return rl_params_to_numpy(self.params)
-
-    @torch.no_grad()
-    def set_weights(self, params) -> bool:
-        """Copy ``params`` (a numpy tree as ``get_weights`` of either stack
-        returns, or the port's tensors) into the learner's; the optimizer's
-        state stays, as in the JAX learner."""
-        new = _named_leaves(place_params(params, self.module, self.device))
-        for name, p in self._named.items():
-            p.copy_(new[name])
-        return True
 
 
 class LearnerGroup:

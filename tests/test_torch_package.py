@@ -14,7 +14,14 @@ from ray_tpu_torch import rl as trl
 from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
-from ray_tpu_torch.rl.algorithms import PPOConfig
+from ray_tpu_torch.rl import offline as toffline
+from ray_tpu_torch.rl.algorithms import (A2CConfig, APPOConfig, CQLConfig,
+                                         DDPGConfig, DQNConfig, ImpalaConfig,
+                                         PPOConfig, SACConfig, TD3Config)
+from ray_tpu_torch.rl.algorithms import appo as tappo
+from ray_tpu_torch.rl.algorithms import dqn as tdqn
+from ray_tpu_torch.rl.algorithms import sac as tsac
+from ray_tpu_torch.rl.algorithms import td3 as ttd3
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -60,6 +67,16 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/rl/algorithm.py",
                    "ray_tpu_torch/rl/algorithms/__init__.py",
                    "ray_tpu_torch/rl/algorithms/ppo.py",
+                   "ray_tpu_torch/rl/vtrace.py",
+                   "ray_tpu_torch/rl/replay_buffer.py",
+                   "ray_tpu_torch/rl/offline.py",
+                   "ray_tpu_torch/rl/algorithms/impala.py",
+                   "ray_tpu_torch/rl/algorithms/appo.py",
+                   "ray_tpu_torch/rl/algorithms/a2c.py",
+                   "ray_tpu_torch/rl/algorithms/dqn.py",
+                   "ray_tpu_torch/rl/algorithms/sac.py",
+                   "ray_tpu_torch/rl/algorithms/td3.py",
+                   "ray_tpu_torch/rl/algorithms/cql.py",
                    "ray_tpu_torch/config.py",
                    "ray_tpu_torch/core/__init__.py",
                    "ray_tpu_torch/core/ids.py",
@@ -126,6 +143,27 @@ ENTRY_POINTS = {
         trl.PPOLearner, {"module_spec": RL_SPEC}),
     "LearnerGroup(remote=True)": lambda cfg: trl.LearnerGroup(
         trl.PPOLearner, {"module_spec": RL_SPEC}, remote=True),
+    "APPOConfig.build": lambda cfg: APPOConfig().build(),
+    "ImpalaConfig.build": lambda cfg: ImpalaConfig().build(),
+    "ImpalaConfig.build(learner_remote=True)": lambda cfg:
+        ImpalaConfig().resources(learner_remote=True).build(),
+    "A2CConfig.build": lambda cfg: A2CConfig().build(),
+    "DQNConfig.build": lambda cfg: DQNConfig().build(),
+    "SACConfig.build": lambda cfg: SACConfig().build(),
+    "TD3Config.build": lambda cfg: TD3Config().build(),
+    "DDPGConfig.build": lambda cfg: DDPGConfig().build(),
+    "BCConfig.build": lambda cfg: toffline.BCConfig().build(),
+    "MARWILConfig.build": lambda cfg: toffline.MARWILConfig().build(),
+    "CQLConfig.build": lambda cfg: CQLConfig().build(),
+    "APPOLearner": lambda cfg: tappo.APPOLearner(RL_SPEC),
+    "SACLearner": lambda cfg: tsac.SACLearner(RL_SPEC),
+    "TD3Learner": lambda cfg: ttd3.TD3Learner(
+        {"obs_dim": 3, "num_actions": -1}),
+    "DQNCollector": lambda cfg: tdqn.DQNCollector(
+        "CartPole-v1", RL_SPEC, 2),
+    "TD3Collector": lambda cfg: ttd3.TD3Collector("Pendulum-v1", {}, 2),
+    "rl_tree_from_jax": lambda cfg: trl.rl_tree_from_jax(
+        {"q": []}, {"q": []}),
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,

@@ -44,6 +44,18 @@ from ray_tpu_torch.rl.algorithms import PPOConfig
 from ray_tpu_torch.rl.env import CartPoleVectorEnv, VectorEnv
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small ops (faster alone, and the suite
+    runs in parallel processes: a thread a core in each oversubscribes the
+    cores, and a CPU gate then runs 20x slower or more)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # the attributes that differ by design: the accelerator and the device
 PORT_ONLY = {"learner_num_gpus", "device"}
 JAX_ONLY = {"learner_num_tpus"}

@@ -16,6 +16,16 @@ PPO through its drivers (``PPOConfig().build()`` with ``device`` left at
 ``None``) in the port's in-process runtime: the learner and the workers on
 the card with finite stats, save and restore, and a shutdown that leaves no
 thread of the runtime alive.
+
+The learners beyond PPO, card (TF32 off) against the CPU from the same
+weights and minibatches, 2 updates each, within the same 1e-4:
+``APPOLearner.update`` (V-trace on the card), DQN's TD step,
+``SACLearner.update``, ``TD3Learner.update`` at ``target_noise=0`` (its
+noise generator lives on the learner's device) and CQL's update; and each
+of them, built on both at one seed, starts from bitwise the same weights.
+Then each new driver (``XConfig().build()``, ``device`` left at ``None``)
+trains 2 small iterations on the card with finite stats and its parameters
+there, and APPO's ``stop()`` with samples in flight leaves no runtime thread.
 """
 
 import numpy as np
@@ -27,7 +37,13 @@ from ray_tpu_torch.models.convert import rl_params_to_numpy
 from ray_tpu_torch.rl import (PPOLearner, RolloutWorker, SampleBatch,
                               make_module)
 from ray_tpu_torch.rl import sample_batch as sb
-from ray_tpu_torch.rl.algorithms import PPOConfig
+from ray_tpu_torch.rl import offline
+from ray_tpu_torch.rl.algorithms import (APPOConfig, CQLConfig, DDPGConfig,
+                                         DQNConfig, ImpalaConfig, PPOConfig,
+                                         SACConfig, TD3Config)
+from ray_tpu_torch.rl.algorithms import appo, sac, td3
+from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
+from ray_tpu_torch.rl.learner import batch_to_device
 from ray_tpu_torch.rl.rollout import place_params
 
 TOL = 1e-4
@@ -247,6 +263,138 @@ def test_ppo_save_and_restore_on_the_card(port_runtime, tmp_path):
 def test_shutdown_leaves_no_runtime_thread_on_the_card(port_runtime):
     import threading
     algo = _ppo(learner_remote=True, learner_num_gpus=1)
+    algo.train()
+    algo.stop()
+    port_runtime.shutdown()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(THREAD_PREFIX) and t.is_alive()]
+    assert alive == []
+
+
+def _transitions(rng, n, obs_dim, discrete):
+    return SampleBatch({
+        sb.OBS: rng.standard_normal((n, obs_dim)).astype(np.float32),
+        sb.ACTIONS: (rng.integers(0, 2, n) if discrete else
+                     rng.uniform(-2, 2, (n, 1)).astype(np.float32)),
+        sb.REWARDS: rng.standard_normal(n).astype(np.float32),
+        sb.NEXT_OBS: rng.standard_normal((n, obs_dim)).astype(np.float32),
+        sb.DONES: (rng.random(n) < 0.2).astype(np.float32)})
+
+
+def _structured(rng, T, N, obs_dim):
+    batch = SampleBatch({
+        sb.OBS: rng.standard_normal((T * N, obs_dim)).astype(np.float32),
+        sb.ACTIONS: rng.integers(0, 2, T * N).astype(np.float32),
+        sb.REWARDS: rng.standard_normal(T * N).astype(np.float32),
+        sb.DONES: (rng.random(T * N) < 0.1).astype(np.float32),
+        sb.ACTION_LOGP: (np.log(0.5) + 0.3 * rng.standard_normal(T * N))
+        .astype(np.float32)})
+    batch.rollout_shape = (T, N)
+    batch.last_obs = rng.standard_normal((N, obs_dim)).astype(np.float32)
+    return batch
+
+
+def _learner(name, dev, tmp_path):
+    """-> (learner, weights getter, one update of a host batch)."""
+    spec = {"obs_dim": 4, "num_actions": 2, "hiddens": (32, 32)}
+    if name == "appo":
+        le = appo.APPOLearner(spec, lr=1e-3, seed=1, device=dev)
+        return le, le.get_weights, le.update
+    if name == "sac":
+        le = sac.SACLearner(spec, seed=1, device=dev)
+        return le, le.get_state, le.update
+    if name == "td3":
+        le = td3.TD3Learner({"obs_dim": 4, "num_actions": -1},
+                            target_noise=0.0, target_noise_clip=0.0,
+                            policy_delay=1, action_low=-2.0,
+                            action_high=2.0, hiddens=(32, 32), seed=1,
+                            device=dev)
+        return le, le.state, le.update
+    if name == "dqn":
+        le = (DQNConfig().rollouts(num_rollout_workers=0)
+              .training(model_hiddens=(32, 32)).resources(device=dev)
+              .build())
+        return le, le.get_state, lambda b: le.td_step(
+            batch_to_device(b, TRANSITION, le.device))
+    path = str(tmp_path / "data")
+    offline.collect_experiences("CartPole-v1", path, num_steps=256)
+    le = (CQLConfig().offline_data(input_path=path)
+          .training(model_hiddens=(32, 32)).resources(device=dev).build())
+    return le, le.get_state, lambda b: le.step(
+        batch_to_device(b, TRANSITION, le.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["appo", "dqn", "sac", "td3", "cql"])
+def test_learners_beyond_ppo_match_cpu(name, cuda_device, no_tf32,
+                                       tmp_path):
+    (cpu, cpu_state, cpu_update), (card, card_state, card_update) = (
+        _learner(name, dev, tmp_path) for dev in ("cpu", None))
+    state = cpu_state()
+    (card.set_weights if name == "appo" else card.set_state)(state)
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        batch = (_structured(rng, 16, 4, 4) if name == "appo" else
+                 _transitions(rng, 64, 4, discrete=name != "td3"))
+        cpu_update(batch)
+        card_update(batch)
+    got, want = _leaves(card_state()), _leaves(cpu_state())
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert np.abs(np.asarray(g) - np.asarray(w)).max() <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["appo", "dqn", "sac", "td3", "cql"])
+def test_a_seed_gives_the_cpus_initial_weights_on_the_card(name, cuda_device,
+                                                           tmp_path):
+    """The learners draw their initial weights on the host and move them, so
+    one seed gives the same weights on the card as on the CPU."""
+    (_, cpu_state, _), (_, card_state, _) = (
+        _learner(name, dev, tmp_path) for dev in ("cpu", None))
+    got, want = _leaves(card_state()), _leaves(cpu_state())
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+
+
+NEW_DRIVERS = {
+    "appo": lambda: APPOConfig().training(train_batch_size=256),
+    "impala": lambda: ImpalaConfig().training(train_batch_size=256),
+    "dqn": lambda: DQNConfig().training(learning_starts=64,
+                                        updates_per_iter=8),
+    "sac": lambda: SACConfig().training(learning_starts=64,
+                                        updates_per_iter=8),
+    "td3": lambda: TD3Config().environment("Pendulum-v1").training(
+        learning_starts=64, updates_per_iter=8),
+    "ddpg": lambda: DDPGConfig().environment("Pendulum-v1").training(
+        learning_starts=64, updates_per_iter=8),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NEW_DRIVERS))
+def test_new_drivers_on_the_card(port_runtime, name):
+    config = NEW_DRIVERS[name]().rollouts(
+        num_rollout_workers=2, num_envs_per_worker=4,
+        rollout_fragment_length=16).debugging(seed=0)
+    algo = config.build()
+    for i in range(2):
+        result = algo.train()
+        assert result["training_iteration"] == i + 1
+        assert all(np.isfinite(v) for k, v in result.items()
+                   if isinstance(v, float) and k != "episode_reward_mean")
+    learner = getattr(algo, "learner", None) or algo
+    leaf = _leaves(getattr(learner, "params", None)
+                   or algo.learner_group.local.params)[0]
+    assert leaf.device.type == "cuda"
+    algo.stop()
+
+
+@pytest.mark.cuda
+def test_appo_stop_with_samples_in_flight_on_the_card(port_runtime):
+    import threading
+    algo = NEW_DRIVERS["appo"]().rollouts(num_envs_per_worker=4).build()
     algo.train()
     algo.stop()
     port_runtime.shutdown()

@@ -41,6 +41,18 @@ from ray_tpu_torch.rl import (PPOLearner, RolloutWorker, SampleBatch,
 from ray_tpu_torch.rl import learner as tlearner
 from ray_tpu_torch.rl import sample_batch as sb
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small ops (faster alone, and the suite
+    runs in parallel processes: a thread a core in each oversubscribes the
+    cores, and a CPU gate then runs 20x slower or more)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SPECS = {
     "mlp": {"obs_dim": 6, "num_actions": 3, "hiddens": (16, 8)},
     "mlp_gauss3": {"obs_dim": 6, "num_actions": -1, "action_dim": 3,
@@ -242,3 +254,21 @@ def test_ppo_learns_cartpole_on_the_cpu():
         if best >= 120:
             break
     assert best >= 120, f"PPO failed to learn CartPole: {rewards}"
+
+
+def test_seeded_init_draws_on_the_host():
+    """The learners draw their initial weights from a CPU generator and move
+    the tree to their device, so a seed gives the same weights on every
+    device, as a JAX PRNGKey does on every backend."""
+    calls = []
+
+    def init(gen, dev):
+        calls.append((gen.device, dev))
+        return {"pi": [{"w": torch.empty(3, 2).normal_(generator=gen)}]}
+
+    moved = tlearner.seeded_init(init, 5, "meta")
+    assert calls == [(torch.device("cpu"), "cpu")]
+    assert moved["pi"][0]["w"].device.type == "meta"
+    want = torch.empty(3, 2).normal_(generator=torch.Generator().manual_seed(5))
+    assert torch.equal(tlearner.seeded_init(init, 5, "cpu")["pi"][0]["w"],
+                       want)

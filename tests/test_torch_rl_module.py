@@ -33,6 +33,18 @@ from ray_tpu_torch.rl import module as tmod
 from ray_tpu_torch.rl import rollout as troll
 from ray_tpu_torch.rl import rl_params_from_jax
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small ops (faster alone, and the suite
+    runs in parallel processes: a thread a core in each oversubscribes the
+    cores, and a CPU gate then runs 20x slower or more)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 TOL = 1e-5
 
 SPECS = {

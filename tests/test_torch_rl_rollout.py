@@ -28,6 +28,18 @@ from ray_tpu.rl import sample_batch as jsb
 from ray_tpu_torch.rl import RolloutWorker, make_module
 from ray_tpu_torch.rl import sample_batch as sb
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for these small ops (faster alone, and the suite
+    runs in parallel processes: a thread a core in each oversubscribes the
+    cores, and a CPU gate then runs 20x slower or more)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CASES = {
     "CartPole-v1": {"obs_dim": 4, "num_actions": 2, "hiddens": (16, 16)},
     "Pendulum-v1": {"obs_dim": 3, "num_actions": -1, "action_dim": 1,
