@@ -152,11 +152,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    evaluate to a mean reward >= 60.
 21. Small f32 learners on the card (TF32 off) against the CPU from the same
    weights and batch, one update each: APPOLearner (V-trace on the card),
-   DQN's TD step, SACLearner, TD3Learner at target_noise=0 and CQL; every
-   parameter and target leaf within 1e-4.
+   DQN's TD step, SACLearner, TD3Learner at target_noise=0, CQL, QMIX's TD
+   step and MADDPG's update (past the actor delay); every parameter and
+   target leaf within 1e-4, and each learner's seeded initial weights
+   bitwise equal on the card and the CPU.
+22. The rest of RL on the card, each at its JAX test's settings and seed,
+   none cut, ``device`` left at ``None``: QMIX on ``TwoStepCoopEnv(horizon=
+   8)`` (epsilon decay 1,500, seed 1) above 6.0 after 14 iterations
+   (tests/test_rl_breadth.py:29); MADDPG on ``CoopSpreadEnv(horizon=10)``
+   (seed 2) above -5.5 after 12 and its greedy median error on
+   ``CoopSpreadEnv(seed=77)`` below 0.3 (:81); ES on CartPole (2 workers as
+   runtime actors, 12 perturbations, horizon 200, seed 3) above max(40,
+   first + 10) after 12 more (:64); the shared-policy collector
+   (``MultiAgentCollector``, a torch Adam at 3e-3) above 0.9 within 40
+   iterations of 64 steps (tests/test_rl_connectors_multiagent.py:88); and
+   the bandits (UCB, TS) on the host, their regret halved and below 0.1
+   (:107). Each prints where the gate was first met and the best value,
+   env steps/s (QMIX, MADDPG, the collector) or episodes/s (ES), and for
+   QMIX and MADDPG the median update ms over windows of 20 updates, each
+   ending in a synchronize. QMIX, MADDPG and ES each save, build afresh
+   and restore bitwise; ``shutdown()`` leaves no runtime thread.
 
-No flash kernel runs on phases 13-21 (the JAX RL stack reaches no Pallas
-kernel): each path's counts must stay 0. Phases 17-21 print their seconds.
+No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
+kernel): each path's counts must stay 0. Phases 17-22 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -2573,12 +2591,14 @@ def phase_offline(card):
 def _small_learners(dev, path):
     """{name: (learner, its state as numpy, one update of a host batch)}
     for the small f32 learners of phase 21 on ``dev``."""
-    from ray_tpu_torch.rl.algorithms import CQLConfig, DQNConfig
+    from ray_tpu_torch.rl.algorithms import (CQLConfig, DQNConfig,
+                                             MADDPGConfig, QMIXConfig)
     from ray_tpu_torch.rl.algorithms.appo import APPOLearner
     from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
     from ray_tpu_torch.rl.algorithms.sac import SACLearner
     from ray_tpu_torch.rl.algorithms.td3 import TD3Learner
     from ray_tpu_torch.rl.learner import batch_to_device
+    from ray_tpu_torch.rl.multi_agent import TwoStepCoopEnv
     spec = {"obs_dim": 8, "num_actions": 4, "hiddens": (64, 64)}
     appo = APPOLearner(spec, lr=1e-3, seed=21, device=dev)
     dqn = (DQNConfig().rollouts(num_rollout_workers=0).environment(
@@ -2589,7 +2609,12 @@ def _small_learners(dev, path):
                      action_low=-2.0, action_high=2.0, seed=21, device=dev)
     cql = CQLConfig().offline_data(input_path=path).resources(
         device=dev).build()
+    qmix = QMIXConfig().resources(device=dev).debugging(seed=21)
+    qmix.env_fn = lambda: TwoStepCoopEnv(horizon=8)
+    qmix = qmix.build()
+    maddpg = MADDPGConfig().resources(device=dev).debugging(seed=21).build()
     tens = lambda a, b: batch_to_device(b, TRANSITION, a.device)
+    joint = lambda a, b: tuple(torch.as_tensor(x).to(a.device) for x in b)
     return {
         "appo": (appo, appo.get_weights, appo.set_weights, appo.update),
         "dqn": (dqn, dqn.get_state, dqn.set_state,
@@ -2598,6 +2623,10 @@ def _small_learners(dev, path):
         "td3": (td3, td3.state, td3.set_state, td3.update),
         "cql": (cql, cql.get_state, cql.set_state,
                 lambda b: cql.step(tens(cql, b))),
+        "qmix": (qmix, qmix.get_state, qmix.set_state,
+                 lambda b: qmix.td_step(joint(qmix, b))),
+        "maddpg": (maddpg, maddpg.get_state, maddpg.set_state,
+                   lambda b: maddpg.update(joint(maddpg, b), 1.0)),
     }
 
 
@@ -2605,6 +2634,17 @@ def _small_batch(name, rng):
     from ray_tpu_torch.rl import SampleBatch
     from ray_tpu_torch.rl import sample_batch as sb
     obs_dim = 4 if name in ("dqn", "cql") else 8
+    if name in ("qmix", "maddpg"):   # joint batches: 2 agents
+        B, d = 128, (2 if name == "qmix" else 3)
+        obs = rng.random((B, 2, d)).astype(np.float32)
+        nobs = rng.random((B, 2, d)).astype(np.float32)
+        done = (rng.random(B) < 0.2).astype(np.float32)
+        if name == "qmix":
+            return (obs, rng.integers(0, 2, (B, 2)).astype(np.int32),
+                    rng.standard_normal(B).astype(np.float32), nobs, done,
+                    obs.reshape(B, -1), nobs.reshape(B, -1))
+        return (obs, rng.uniform(-1, 1, (B, 2, 1)).astype(np.float32),
+                rng.standard_normal((B, 2)).astype(np.float32), nobs, done)
     if name == "appo":
         T, N = 16, 8
         batch = SampleBatch({
@@ -2631,8 +2671,9 @@ def _small_batch(name, rng):
 def phase_small_offpolicy():
     """Small f32 learners on the card (TF32 off) against the CPU: from the
     same weights and batch, one update of APPOLearner (V-trace on the
-    card), DQN's TD step, SACLearner, TD3Learner at target_noise=0 and CQL;
-    the largest difference of any parameter (and target) leaf."""
+    card), DQN's TD step, SACLearner, TD3Learner at target_noise=0, CQL,
+    QMIX's TD step and MADDPG's update (past the actor delay); the largest
+    difference of any parameter (and target) leaf."""
     import tempfile
 
     from ray_tpu_torch.rl.learner import _named_leaves
@@ -2670,6 +2711,248 @@ def phase_small_offpolicy():
           f"card and the CPU: {init_same}")
     check(max(out.values()) <= RL_TOL_F32,
           "small RL learners: card disagrees with the CPU")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the rest of RL (multi-agent collection, QMIX, MADDPG, ES, the
+# bandits)
+# ---------------------------------------------------------------------------
+
+# The JAX package's gates, each at its test's settings and seed:
+# tests/test_rl_breadth.py:29 (QMIX above 6.0 after 14 iterations), :81
+# (MADDPG above -5.5 after 12, the greedy median error below 0.3), :64 (ES
+# above max(40, first + 10) after 12 more), :107 (the bandits' regret
+# halves over 8 more iterations and ends below 0.1), and
+# tests/test_rl_connectors_multiagent.py:88 (the shared policy's mean
+# reward above 0.9 within 40 iterations of 64 steps).
+QMIX_GATE, QMIX_ITERS = 6.0, 14
+MADDPG_GATE, MADDPG_ITERS, MADDPG_ERR = -5.5, 12, 0.3
+ES_ITERS = 12
+COOP_GATE, COOP_ITERS = 0.9, 40
+BANDIT_ITERS, BANDIT_REGRET = 8, 0.1
+
+
+def _fixed_run(algo, iters, gate, tag):
+    """train() ``iters`` times, as the JAX test does; the last mean reward
+    must clear ``gate`` -> the results, the rewards, the first iteration
+    above the gate and the best reward."""
+    results = [algo.train() for _ in range(iters)]
+    values = [float(r["episode_reward_mean"]) for r in results]
+    above = [i + 1 for i, v in enumerate(values) if v > gate]
+    check(values[-1] > gate,
+          f"[{tag}] mean reward {values[-1]} after {iters} iterations, "
+          f"gate {gate}: {[round(v, 3) for v in values]}")
+    return results, values, above[0], max(values)
+
+
+def _joint_update_ms(algo, step):
+    """The median update ms (windows of 20, ending in a synchronize) on
+    minibatches of the algorithm's own joint buffer."""
+    rng = np.random.default_rng(22)
+    n = algo.config.train_batch_size
+    return _update_window(step, lambda: algo.sample_batch(
+        rng.integers(0, len(algo._buf), n)))
+
+
+def phase_rest_of_rl(card):
+    """QMIX, MADDPG and ES through their entry points with ``device`` left
+    at ``None`` (ES's workers are runtime actors), the shared-policy
+    collector with a torch Adam, all on the card, and the bandits on the
+    host; each at its JAX test's settings and seed."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch._device import resolve_device
+    from ray_tpu_torch.rl import make_module
+    from ray_tpu_torch.rl import sample_batch as sb
+    from ray_tpu_torch.rl.algorithms import (Bandit, BanditConfig,
+                                             ContextualBanditEnv,
+                                             CoopSpreadEnv, ESConfig,
+                                             MADDPGConfig, QMIXConfig)
+    from ray_tpu_torch.rl.learner import _named_leaves
+    from ray_tpu_torch.rl.multi_agent import (MultiAgentCollector,
+                                              TwoStepCoopEnv)
+    from ray_tpu_torch.rl.rollout import place_params
+    out = {}
+    rt.init()
+    _reset_launch_counts()
+    try:
+        # QMIX at tests/test_rl_breadth.py:29's settings
+        config = QMIXConfig().debugging(seed=1)
+        config.env_fn = lambda: TwoStepCoopEnv(horizon=8)
+        config.epsilon_decay_steps = 1500
+        algo = config.build()
+        results, rewards, at, best = _fixed_run(algo, QMIX_ITERS, QMIX_GATE,
+                                                "qmix")
+        device = str(algo.params["q"][0]["w"].device)
+        check(device.startswith("cuda") and
+              np.isfinite(results[-1]["info/td_loss"]),
+              f"[qmix] on {device}, td loss {results[-1]['info/td_loss']}")
+        secs = sum(r["time_this_iter_s"] for r in results)
+        restored = _bitwise_restore(algo, config, lambda a: a.get_state(),
+                                    "qmix")
+        out["qmix"] = dict(
+            iterations=QMIX_ITERS, gate_first_met_at=at, best_reward=best,
+            last_reward=rewards[-1], rewards=[round(r, 3) for r in rewards],
+            env_steps=algo._timesteps_total,
+            env_steps_per_s=algo._timesteps_total / secs,
+            updates=QMIX_ITERS * config.updates_per_iter,
+            update_ms=_joint_update_ms(algo, algo.td_step), device=device,
+            restored_leaves=restored)
+        print(f"[qmix] TwoStepCoopEnv(horizon=8), seed 1: {rewards[-1]:.2f} "
+              f"after {QMIX_ITERS} iterations (gate {QMIX_GATE}, first above "
+              f"it at iteration {at}, best {best:.2f}); "
+              f"{algo._timesteps_total} env steps, "
+              f"{out['qmix']['env_steps_per_s']:.1f} env steps/s; median TD "
+              f"step {out['qmix']['update_ms']:.3f} ms (windows of 20); "
+              f"rewards {out['qmix']['rewards']} on {card}", flush=True)
+        # MADDPG at :81's settings
+        config = MADDPGConfig().debugging(seed=2)
+        config.env_fn = lambda: CoopSpreadEnv(horizon=10)
+        algo = config.build()
+        results, rewards, at, best = _fixed_run(
+            algo, MADDPG_ITERS, MADDPG_GATE, "maddpg")
+        errs, env = [], CoopSpreadEnv(horizon=10, seed=77)
+        for _ in range(5):
+            a = algo._act(algo.params["actors"],
+                          algo._stack_obs(env.reset())).ravel()
+            errs.append(max(abs(a[0] - env.target), abs(a[1] - env.target)))
+        err = float(np.median(errs))
+        check(err < MADDPG_ERR, f"[maddpg] greedy median error {err} "
+                                f"(gate {MADDPG_ERR}): {errs}")
+        device = str(algo.params["actors"][0][0]["w"].device)
+        check(device.startswith("cuda"), f"[maddpg] on {device}")
+        secs = sum(r["time_this_iter_s"] for r in results)
+        restored = _bitwise_restore(algo, config, lambda a: a.get_state(),
+                                    "maddpg")
+        out["maddpg"] = dict(
+            iterations=MADDPG_ITERS, gate_first_met_at=at, best_reward=best,
+            last_reward=rewards[-1], rewards=[round(r, 3) for r in rewards],
+            greedy_median_error=err, env_steps=algo._timesteps_total,
+            env_steps_per_s=algo._timesteps_total / secs,
+            updates=MADDPG_ITERS * config.updates_per_iter,
+            update_ms=_joint_update_ms(
+                algo, lambda b: algo.update(b, 1.0)),
+            device=device, restored_leaves=restored)
+        print(f"[maddpg] CoopSpreadEnv(horizon=10), seed 2: {rewards[-1]:.3f}"
+              f" after {MADDPG_ITERS} iterations (gate {MADDPG_GATE}, first "
+              f"above it at iteration {at}, best {best:.3f}); greedy median "
+              f"error {err:.4f} (gate {MADDPG_ERR}); "
+              f"{out['maddpg']['env_steps_per_s']:.1f} env steps/s; median "
+              f"update {out['maddpg']['update_ms']:.3f} ms (windows of 20); "
+              f"rewards {out['maddpg']['rewards']} on {card}", flush=True)
+        # ES at :64's settings: 2 workers, 12 perturbations, horizon 200
+        config = (ESConfig().environment("CartPole-v1")
+                  .rollouts(num_rollout_workers=2).debugging(seed=3))
+        config.num_perturbations, config.episode_horizon = 12, 200
+        algo = config.build()
+        first = algo.train()
+        gate = max(40.0, first["episode_reward_mean"] + 10.0)
+        results, rewards, at, best = _fixed_run(algo, ES_ITERS, gate, "es")
+        results = [first] + results
+        secs = sum(r["time_this_iter_s"] for r in results)
+        episodes = 2 * config.num_perturbations * len(results)
+        restored = _bitwise_restore(algo, config, lambda a: a.get_state(),
+                                    "es")
+        actors = rt.core.api._runtime._actors
+        device = ", ".join(sorted({str(actors[w.actor_id].instance.device)
+                                   for w in algo.workers}))
+        check(device.startswith("cuda") and "cpu" not in device,
+              f"[es] workers on {device}")
+        algo.stop()
+        out["es"] = dict(
+            iterations=len(results), first_reward=first[
+                "episode_reward_mean"], gate=gate, gate_first_met_at=at + 1,
+            best_reward=best, last_reward=rewards[-1],
+            rewards=[round(r["episode_reward_mean"], 2) for r in results],
+            episodes=episodes, episodes_per_s=episodes / secs,
+            device=device, restored_leaves=restored)
+        print(f"[es] CartPole, 2 workers x 12 perturbations, horizon 200, "
+              f"seed 3: first {first['episode_reward_mean']:.2f}, "
+              f"{rewards[-1]:.2f} after {ES_ITERS} more (gate {gate:.2f}, "
+              f"first above it at iteration {at + 1}, best {best:.2f}); "
+              f"{episodes} episodes in {secs:.2f} s = "
+              f"{out['es']['episodes_per_s']:.2f} episodes/s; rewards "
+              f"{out['es']['rewards']} on {card}", flush=True)
+        # the shared policy learning to coordinate (tests/
+        # test_rl_connectors_multiagent.py:88), a torch Adam at lr 3e-3
+        module = make_module({"obs_dim": 2, "num_actions": 2,
+                              "hiddens": (32,)})
+        dev = resolve_device(None)
+        params = place_params(module.init(torch.Generator().manual_seed(0),
+                                          "cpu"), module, dev)
+        leaves = list(_named_leaves(params).values())
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        opt = torch.optim.Adam(leaves, lr=3e-3)
+        col = MultiAgentCollector(TwoStepCoopEnv(horizon=8),
+                                  {"shared": module}, {"shared": params},
+                                  seed=0)
+        check(col.generator.device.type == "cuda",
+              f"[coop] the collector draws on {col.generator.device}")
+        means, collect_s = [], 0.0
+        t0 = time.perf_counter()
+        for _ in range(COOP_ITERS):
+            c0 = time.perf_counter()
+            b = col.collect(64)["shared"]
+            collect_s += time.perf_counter() - c0
+            logp, entropy, _ = module.logp_entropy(params, b[sb.OBS],
+                                                   b[sb.ACTIONS])
+            rew = torch.as_tensor(b[sb.REWARDS], device=dev)
+            loss = -(logp * (rew - rew.mean())).mean() \
+                - 0.01 * entropy.mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+            col.set_params({"shared": params})
+            means.append(float(np.mean(b[sb.REWARDS])))
+            if means[-1] > COOP_GATE:
+                break
+        wall = time.perf_counter() - t0
+        check(means[-1] > COOP_GATE,
+              f"[coop] agents never coordinated: {[round(m, 3) for m in means]}")
+        steps = 64 * len(means)
+        out["coop"] = dict(
+            iterations=len(means), gate_first_met_at=len(means),
+            best_reward=max(means), rewards=[round(m, 3) for m in means],
+            env_steps=steps, env_steps_per_s=steps / wall,
+            collect_env_steps_per_s=steps / collect_s,
+            device=str(col.params["shared"]["pi"][0]["w"].device))
+        print(f"[coop] MultiAgentCollector, shared policy (32,), torch Adam "
+              f"3e-3: mean reward {means[-1]:.3f} > {COOP_GATE} at iteration "
+              f"{len(means)} of {COOP_ITERS}; {steps} env steps at "
+              f"{out['coop']['env_steps_per_s']:.1f} env steps/s "
+              f"({out['coop']['collect_env_steps_per_s']:.1f} collecting "
+              f"alone) on {card}", flush=True)
+    finally:
+        rt.shutdown()
+    alive = _runtime_threads()
+    check(not alive, f"[rest of RL] runtime threads alive after shutdown: "
+                     f"{alive}")
+    # the bandits on the host (numpy; the JAX package's too): no device
+    for exploration in ("ucb", "ts"):
+        config = BanditConfig()
+        config.exploration = exploration
+        config.env_fn = lambda: ContextualBanditEnv(
+            num_arms=4, context_dim=8, noise=0.05, seed=4)
+        algo = Bandit(config.debugging(seed=4))
+        results = [algo.train() for _ in range(BANDIT_ITERS + 1)]
+        regret = [r["info/regret_per_step"] for r in results]
+        check(regret[-1] < 0.5 * regret[0] and regret[-1] < BANDIT_REGRET,
+              f"[bandit-{exploration}] regret per step {regret}")
+        secs = sum(r["time_this_iter_s"] for r in results)
+        steps = algo._timesteps_total
+        out[f"bandit_{exploration}"] = dict(
+            iterations=len(results), regret_per_step=regret,
+            steps=steps, steps_per_s=steps / secs, device="host")
+        print(f"[bandit-{exploration}] regret per step {regret[0]:.4f} -> "
+              f"{regret[-1]:.4f} over {len(results)} iterations (gate: "
+              f"halved and < {BANDIT_REGRET}); {steps / secs:.1f} steps/s on "
+              f"the host", flush=True)
+    launches = _launch_counts()
+    check(launches == (0, 0, 0, 0),
+          f"[rest of RL] launched flash kernels {launches}")
+    for k in out:
+        out[k]["launches"] = launches
     return out
 
 
@@ -2725,6 +3008,14 @@ def main() -> int:
         phase_small_offpolicy()
     print(f"[phase] small learners: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    rest = phase_rest_of_rl(card)
+    print(f"[phase] rest of RL: {time.perf_counter() - t0:.1f} s", flush=True)
+    runs.update({"qmix_coop": rest["qmix"], "maddpg_spread": rest["maddpg"],
+                 "es_cartpole": rest["es"],
+                 "shared_policy_coop": rest["coop"],
+                 "bandit_ucb": rest["bandit_ucb"],
+                 "bandit_ts": rest["bandit_ts"]})
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

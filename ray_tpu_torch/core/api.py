@@ -7,7 +7,7 @@ The port has the in-process runtime only: ``init()`` and
 ``init(local_mode=True)`` start it, where the JAX package's ``init()``
 tries its cluster runtime first. An address (``"host:port"``,
 ``client://``) raises ``NotImplementedError``: the cluster and client
-runtimes are still to port (ROADMAP.md A.7).
+runtimes are still to port (ROADMAP.md A.5).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def init(address: Optional[str] = None, *,
             raise NotImplementedError(
                 f"ray_tpu_torch.init(address={address!r}): the port has the "
                 "in-process runtime only; the cluster and client runtimes "
-                "are still to port (ROADMAP.md A.7). Call init() or "
+                "are still to port (ROADMAP.md A.5). Call init() or "
                 "init(local_mode=True).")
         if _system_config:
             config.set_system_config(_system_config)

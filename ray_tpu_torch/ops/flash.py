@@ -182,7 +182,7 @@ def flash_bwd(q, k, v, out, lse, do, *, causal: bool = True,
     Causal attention with Sq > Sk is refused: its first rows see no key, the
     forward gives them O = 0 and LSE ≈ NEG_INF, and exp(s − LSE) would give
     P = 1 there, which is not the forward's gradient (the TPU backward has
-    the same fault, ROADMAP.md D)."""
+    the same fault, ROADMAP.md C)."""
     if causal and q.shape[1] > k.shape[1]:
         raise ValueError(f"the causal backward takes Sq <= Sk, not "
                          f"Sq {q.shape[1]} > Sk {k.shape[1]}")

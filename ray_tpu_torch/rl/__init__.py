@@ -1,11 +1,13 @@
-"""ray_tpu_torch.rl: the single-agent RL library ported from ``ray_tpu.rl``.
+"""ray_tpu_torch.rl: the RL library ported from ``ray_tpu.rl``.
 
 The RLModule catalog (MLP, CNN, LSTM, GTrXL), the sample batch, the
 vectorized envs, rollout with GAE, V-trace (``rl.vtrace``), the replay
-buffers, the offline IO with BC and MARWIL (``rl.offline``), the PPO
-learner and the drivers (``LearnerGroup``, ``WorkerSet``, ``Algorithm``,
-``AlgorithmConfig``), and the algorithms in ``ray_tpu_torch.rl.algorithms``
-(PPO, IMPALA, APPO, A2C, DQN, SAC, TD3, DDPG, CQL), in PyTorch. The drivers
+buffers, the offline IO with BC and MARWIL (``rl.offline``), the
+connectors (``rl.connectors``), multi-agent collection
+(``rl.multi_agent``), the PPO learner and the drivers (``LearnerGroup``,
+``WorkerSet``, ``Algorithm``, ``AlgorithmConfig``), and the algorithms in
+``ray_tpu_torch.rl.algorithms`` (PPO, IMPALA, APPO, A2C, DQN, SAC, TD3,
+DDPG, CQL, QMIX, MADDPG, ES and the bandits), in PyTorch. The drivers
 run the rollout workers, collectors and learners as actors of the port's
 in-process runtime or in the driver's thread, all on one device (``None`` =
 the CUDA card):

@@ -17,7 +17,7 @@ batch statistics with the forward's new ones.
 
 One device, no mesh. The JAX versions place params, optimizer state and
 batch on a mesh and let XLA insert the collectives; sharding comes to the
-port with its parallel slice (ROADMAP.md A.5).
+port with its parallel slice (ROADMAP.md A.3).
 
 The JAX step donates its state and returns a new one. Here the update is in
 place: ``step_fn`` changes the params (and batch statistics) and the

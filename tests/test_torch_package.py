@@ -15,9 +15,12 @@ from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
 from ray_tpu_torch.rl import offline as toffline
-from ray_tpu_torch.rl.algorithms import (A2CConfig, APPOConfig, CQLConfig,
-                                         DDPGConfig, DQNConfig, ImpalaConfig,
-                                         PPOConfig, SACConfig, TD3Config)
+from ray_tpu_torch.rl import multi_agent as tmulti
+from ray_tpu_torch.rl.algorithms import (MADDPG, QMIX, A2CConfig, APPOConfig,
+                                         CQLConfig, DDPGConfig, DQNConfig,
+                                         ESConfig, ImpalaConfig, MADDPGConfig,
+                                         PPOConfig, QMIXConfig, SACConfig,
+                                         TD3Config)
 from ray_tpu_torch.rl.algorithms import appo as tappo
 from ray_tpu_torch.rl.algorithms import dqn as tdqn
 from ray_tpu_torch.rl.algorithms import sac as tsac
@@ -77,6 +80,12 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/rl/algorithms/sac.py",
                    "ray_tpu_torch/rl/algorithms/td3.py",
                    "ray_tpu_torch/rl/algorithms/cql.py",
+                   "ray_tpu_torch/rl/connectors.py",
+                   "ray_tpu_torch/rl/multi_agent.py",
+                   "ray_tpu_torch/rl/algorithms/qmix.py",
+                   "ray_tpu_torch/rl/algorithms/maddpg.py",
+                   "ray_tpu_torch/rl/algorithms/es.py",
+                   "ray_tpu_torch/rl/algorithms/bandits.py",
                    "ray_tpu_torch/config.py",
                    "ray_tpu_torch/core/__init__.py",
                    "ray_tpu_torch/core/ids.py",
@@ -164,6 +173,15 @@ ENTRY_POINTS = {
     "TD3Collector": lambda cfg: ttd3.TD3Collector("Pendulum-v1", {}, 2),
     "rl_tree_from_jax": lambda cfg: trl.rl_tree_from_jax(
         {"q": []}, {"q": []}),
+    "QMIX": lambda cfg: QMIX(QMIXConfig()),
+    "MADDPG": lambda cfg: MADDPG(MADDPGConfig()),
+    "ESConfig.build": lambda cfg: ESConfig().build(),
+    "MultiAgentCollector": lambda cfg: tmulti.MultiAgentCollector(
+        tmulti.TwoStepCoopEnv(), {"shared": trl.make_module(
+            {"obs_dim": 2, "num_actions": 2})}, {}),
+    # Not here: rl.algorithms.Bandit. Like the JAX package's, it skips the
+    # base init and runs on the host only: it takes no device, so it has
+    # nothing to refuse without a card (ROADMAP.md C).
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,

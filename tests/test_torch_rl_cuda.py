@@ -26,6 +26,14 @@ of them, built on both at one seed, starts from bitwise the same weights.
 Then each new driver (``XConfig().build()``, ``device`` left at ``None``)
 trains 2 small iterations on the card with finite stats and its parameters
 there, and APPO's ``stop()`` with samples in flight leaves no runtime thread.
+
+The rest of RL, within the same 1e-4 (TF32 off): QMIX's TD step and
+MADDPG's update (across the actor delay) card against the CPU from the same
+weights and batches, and each built on both at one seed starts from
+bitwise the same weights; ``MultiAgentCollector`` draws on the card; an
+``ESWorker`` on the card returns the CPU worker's fitness, and
+``ESConfig().build()`` trains on the card and stops leaving no runtime
+thread.
 """
 
 import numpy as np
@@ -39,11 +47,14 @@ from ray_tpu_torch.rl import (PPOLearner, RolloutWorker, SampleBatch,
 from ray_tpu_torch.rl import sample_batch as sb
 from ray_tpu_torch.rl import offline
 from ray_tpu_torch.rl.algorithms import (APPOConfig, CQLConfig, DDPGConfig,
-                                         DQNConfig, ImpalaConfig, PPOConfig,
+                                         DQNConfig, ESConfig, ImpalaConfig,
+                                         MADDPGConfig, PPOConfig, QMIXConfig,
                                          SACConfig, TD3Config)
-from ray_tpu_torch.rl.algorithms import appo, sac, td3
+from ray_tpu_torch.rl.algorithms import appo, es, sac, td3
 from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
 from ray_tpu_torch.rl.learner import batch_to_device
+from ray_tpu_torch.rl.multi_agent import (AGENT_ID, MultiAgentCollector,
+                                          TwoStepCoopEnv)
 from ray_tpu_torch.rl.rollout import place_params
 
 TOL = 1e-4
@@ -396,6 +407,105 @@ def test_appo_stop_with_samples_in_flight_on_the_card(port_runtime):
     import threading
     algo = NEW_DRIVERS["appo"]().rollouts(num_envs_per_worker=4).build()
     algo.train()
+    algo.stop()
+    port_runtime.shutdown()
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith(THREAD_PREFIX) and t.is_alive()]
+    assert alive == []
+
+
+def _multi_agent(name, dev):
+    """-> (algorithm, state getter, one update of a host joint batch)."""
+    on = lambda algo, batch: tuple(torch.as_tensor(a).to(algo.device)
+                                   for a in batch)
+    if name == "qmix":
+        config = QMIXConfig().resources(device=dev).debugging(seed=3)
+        config.env_fn = lambda: TwoStepCoopEnv(horizon=8)
+        algo = config.build()
+        return algo, algo.get_state, lambda b, do: algo.td_step(on(algo, b))
+    config = MADDPGConfig().resources(device=dev).debugging(seed=3)
+    algo = config.build()
+    return algo, algo.get_state, lambda b, do: algo.update(on(algo, b), do)
+
+
+def _joint_batch(name, rng, B=64):
+    n, d = (2, 2) if name == "qmix" else (2, 3)
+    obs = rng.random((B, n, d)).astype(np.float32)
+    nobs = rng.random((B, n, d)).astype(np.float32)
+    done = (rng.random(B) < 0.2).astype(np.float32)
+    if name == "qmix":
+        return (obs, rng.integers(0, 2, (B, n)).astype(np.int32),
+                rng.standard_normal(B).astype(np.float32), nobs, done,
+                obs.reshape(B, -1), nobs.reshape(B, -1))
+    return (obs, rng.uniform(-1, 1, (B, n, 1)).astype(np.float32),
+            rng.standard_normal((B, n)).astype(np.float32), nobs, done)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qmix", "maddpg"])
+def test_multi_agent_updates_match_cpu(name, cuda_device, no_tf32):
+    """QMIX's TD step and MADDPG's update (the second one past the actor
+    delay), 2 each from the same weights and batches."""
+    (cpu, cpu_state, cpu_update), (card, card_state, card_update) = (
+        _multi_agent(name, dev) for dev in ("cpu", None))
+    card.set_state(cpu_state())
+    rng = np.random.default_rng(12)
+    for do_actor in (0.0, 1.0):
+        batch = _joint_batch(name, rng)
+        cpu_update(batch, do_actor)
+        card_update(batch, do_actor)
+    got, want = _leaves(card_state()), _leaves(cpu_state())
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert np.abs(np.asarray(g) - np.asarray(w)).max() <= TOL
+    assert _leaves(card.params)[0].device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["qmix", "maddpg"])
+def test_a_seed_gives_the_cpus_multi_agent_weights_on_the_card(name,
+                                                                cuda_device):
+    (_, cpu_state, _), (_, card_state, _) = (
+        _multi_agent(name, dev) for dev in ("cpu", None))
+    got, want = _leaves(card_state()), _leaves(cpu_state())
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert np.asarray(g).tobytes() == np.asarray(w).tobytes()
+
+
+@pytest.mark.cuda
+def test_collector_samples_on_the_card(cuda_device):
+    module = make_module({"obs_dim": 2, "num_actions": 2, "hiddens": (32,)})
+    weights = rl_params_to_numpy(module.init(
+        torch.Generator().manual_seed(4), device="cpu"))
+    col = MultiAgentCollector(TwoStepCoopEnv(horizon=4), {"shared": module},
+                              {"shared": weights}, seed=0)
+    batch = col.collect(16)["shared"]
+    assert col.generator.device.type == "cuda"
+    assert col.params["shared"]["pi"][0]["w"].device.type == "cuda"
+    assert batch.count == 32 and len(col.episode_returns) == 4
+    assert batch[sb.ACTIONS].dtype == np.int32
+    assert set(batch[sb.ACTIONS].tolist()) <= {0, 1}
+    assert set(batch[AGENT_ID].tolist()) == {"agent_0", "agent_1"}
+
+
+@pytest.mark.cuda
+def test_es_on_the_card(port_runtime, no_tf32):
+    """An ESWorker on the card returns the CPU worker's fitness for the
+    same theta and seeds; ``ESConfig().build()`` trains on the card and
+    its ``stop()`` leaves no runtime thread after shutdown."""
+    import threading
+    spec = {"obs_dim": 4, "num_actions": 2, "hiddens": (64, 64)}
+    theta = es._flatten(rl_params_to_numpy(make_module(spec).init(
+        torch.Generator().manual_seed(2), device="cpu")))
+    card = es.ESWorker("CartPole-v1", spec, 100, 0.1, seed=1)
+    cpu = es.ESWorker("CartPole-v1", spec, 100, 0.1, seed=1, device="cpu")
+    assert card.evaluate(theta, [5, 6]) == cpu.evaluate(theta, [5, 6])
+    config = ESConfig().rollouts(num_rollout_workers=2).debugging(seed=3)
+    config.num_perturbations, config.episode_horizon = 4, 50
+    algo = config.build()
+    result = algo.train()
+    assert np.isfinite(result["episode_reward_mean"])
     algo.stop()
     port_runtime.shutdown()
     alive = [t.name for t in threading.enumerate()
