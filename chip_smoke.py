@@ -173,8 +173,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ending in a synchronize. QMIX, MADDPG and ES each save, build afresh
    and restore bitwise; ``shutdown()`` leaves no runtime thread.
 
+23. The parallel layer on one rank (``ray_tpu_torch.parallel``, ``ops``):
+   ``build_mesh(MeshSpec())`` with ``device`` left at ``None`` starts a
+   one-rank NCCL group whose ``DeviceMesh`` is on ``cuda`` with the seven
+   axis names; every function of ``parallel/collectives.py`` returns its
+   input bitwise on every axis and on (dp, fsdp); ring and Ulysses
+   attention at the flagship's attention shape (B 8, S 2048, 16 heads of
+   128, causal) against ``attention_reference`` in f32, from f32 and from
+   bf16 inputs, with their milliseconds beside the flash kernel's (CUDA
+   events); ``pipeline_apply`` at pp = 1 over 2 microbatches of 2 flagship
+   layers against ``_stage_apply``; the flagship train step (phase 5's
+   configuration, B 8 x 2048) through ``make_lm_train_step(cfg, mesh)``:
+   3 steps from the seeded init of ``mesh=None``'s 3, each loss within
+   2e-3 of its, flash launches of (20, 10, 10, 10) a step, both paths'
+   step ms and their ratio (DTensor's cost at one rank), and
+   ``attn_impl="ring"``'s loss within 2e-3 of the flash loss, and each
+   leaf's first-step gradient with the mesh against ``mesh=None``; one
+   ``PPOLearner.update`` with the mesh within 1e-5 of ``mesh=None`` (f32).
+   The phase destroys its process group.
+
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
-kernel): each path's counts must stay 0. Phases 17-22 print their seconds.
+kernel): each path's counts must stay 0, as they must for ring, Ulysses and
+the PPO learner in phase 23. Phases 17-23 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -2956,6 +2976,338 @@ def phase_rest_of_rl(card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the parallel layer on one rank
+# ---------------------------------------------------------------------------
+
+# Ring and Ulysses attention against attention_reference in f32 on the same
+# inputs. f32 inputs (TF32 off): the order of the f32 sums only. bf16
+# inputs: both round Q K^T to bf16 before the scale (a logit of |q.k| ~ 68,
+# 6 sigma at D 128, is off by up to 0.25 * 128^-0.5 = 0.022), P to bf16
+# before the PV product and O to bf16 (values up to ~4): 2% of a value
+# near 4 is 0.08.
+SP_ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-1}
+# pipeline_apply at pp = 1 against _stage_apply: the same kernels on the
+# same shapes, so bitwise is expected; the bound is the bf16 one of a few
+# ulps of activations near 4.
+PIPE_TOL = 2e-2
+# The flagship step on a one-rank mesh against the one-device step from the
+# same weights and batch: the same products, but for the embedding lookup's
+# backward (F.embedding's sums in another order than indexing's), so the
+# losses differ by bf16 rounding, well under 2e-3; attn_impl
+# "ring" at n = 1 runs _block_step's one block in place of the flash
+# kernel, both at bf16 (2e-3 of a loss near ln 32768).
+MESH_LOSS_TOL = 2e-3
+# The PPO learner (f32, TF32 off) with a one-rank mesh against none.
+MESH_PPO_TOL = 1e-5
+
+
+def _collectives_at_one_rank(mesh):
+    """Every function of parallel/collectives.py on every axis (and a tuple
+    of two) returns its input bitwise at n = 1."""
+    from ray_tpu_torch.parallel import collectives as c
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    x = torch.randn(64, 48, device="cuda")
+    checked = 0
+    with c.axis_env(mesh):
+        for axis in list(AXIS_ORDER) + [("dp", "fsdp")]:
+            outs = {"allreduce_sum": c.allreduce_sum(x, axis),
+                    "allreduce_mean": c.allreduce_mean(x, axis),
+                    "allreduce_max": c.allreduce_max(x, axis),
+                    "allreduce_min": c.allreduce_min(x, axis),
+                    "allgather": c.allgather(x, axis, concat_dim=1),
+                    "allgather_untiled": c.allgather(x, axis,
+                                                     tiled=False)[0],
+                    "reducescatter": c.reducescatter(x, axis),
+                    "alltoall": c.alltoall(x, axis, split_dim=0,
+                                           concat_dim=1)}
+            if isinstance(axis, str):
+                outs["ring_permute"] = c.ring_permute(x, axis)
+                outs["broadcast_from"] = c.broadcast_from(x, axis)
+            torch.cuda.synchronize()
+            for name, out in outs.items():
+                check(torch.equal(out, x), f"{name} over {axis} at one rank "
+                      "is not the identity")
+                checked += 1
+            check(c.axis_index(axis) == 0 and c.axis_size(axis) == 1,
+                  f"axis {axis}: index {c.axis_index(axis)}, size "
+                  f"{c.axis_size(axis)}")
+    check(c.broadcast_rounds(4) == [[(0, 1), (0, 2)], [(0, 3)]],
+          "broadcast_rounds")
+    return checked
+
+
+def _sp_attention(card, mesh):
+    """Ring and Ulysses attention at the flagship's attention shape against
+    attention_reference in f32, and their milliseconds beside the flash
+    kernel's (CUDA events)."""
+    from ray_tpu_torch.ops import (attention_reference, flash_attention,
+                                   ring_attention, ulysses_attention)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q32, k32, v32 = (torch.randn(8, 2048, 16, 128, generator=gen,
+                                 device="cuda") for _ in range(3))
+    want = attention_reference(q32, k32, v32, causal=True)
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    out = {}
+    for name, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        errs = {}
+        for dt, args in ((torch.float32, (q32, k32, v32)),
+                         (torch.bfloat16, (q, k, v))):
+            _reset_launch_counts()
+            got = fn(*args, mesh, causal=True).full_tensor()
+            torch.cuda.synchronize()
+            launches = _launch_counts()
+            check(got.dtype == dt and got.shape == q.shape,
+                  f"{name}: {got.dtype} {tuple(got.shape)}")
+            errs[dt] = (got.float() - want).abs().max().item()
+            check(errs[dt] <= SP_ATTN_TOL[dt],
+                  f"{name} attention at n = 1, {dt}: max abs err "
+                  f"{errs[dt]} against attention_reference in f32, tol "
+                  f"{SP_ATTN_TOL[dt]}")
+            del got
+        ms = cuda_ms(lambda: fn(q, k, v, mesh, causal=True), iters=5,
+                     warmup=1)
+        out[name] = dict(max_abs_err=errs[torch.bfloat16],
+                         max_abs_err_f32=errs[torch.float32], ms=ms,
+                         launches=launches)
+    out["flash_ms"] = cuda_ms(lambda: flash_attention(q, k, v, causal=True),
+                              iters=5, warmup=1)
+    out["reference_ms"] = cuda_ms(lambda: attention_reference(
+        q, k, v, causal=True), iters=5, warmup=1)
+    print(f"[mesh] attention B 8, S 2048, 16 heads of 128, causal, n = 1, "
+          f"max abs err against attention_reference in f32: ring f32 "
+          f"{out['ring']['max_abs_err_f32']:.3e}, bf16 "
+          f"{out['ring']['max_abs_err']:.3e}; ulysses f32 "
+          f"{out['ulysses']['max_abs_err_f32']:.3e}, bf16 "
+          f"{out['ulysses']['max_abs_err']:.3e} (tol f32 "
+          f"{SP_ATTN_TOL[torch.float32]}, bf16 "
+          f"{SP_ATTN_TOL[torch.bfloat16]}); bf16 ms (CUDA events): ring "
+          f"{out['ring']['ms']:.3f}, ulysses {out['ulysses']['ms']:.3f}, "
+          f"the flash kernel {out['flash_ms']:.3f}, attention_reference "
+          f"{out['reference_ms']:.3f}; flash launches ring "
+          f"{out['ring']['launches']}, ulysses {out['ulysses']['launches']} "
+          f"on {card}", flush=True)
+    del q, k, v, q32, k32, v32, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pipeline_at_one_rank(mesh):
+    """pipeline_apply at pp = 1 over 2 microbatches of a flagship-width
+    stack of 2 layers (bf16) against _stage_apply on each microbatch."""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.ops.pipeline import pipeline_apply
+    cfg = dataclasses.replace(flagship_cfg(remat=False), n_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    params = tf.transformer_init(gen, cfg)
+    stage = tf._map_tree(params["layers"], lambda a: a[None])   # [1, L, ...]
+    x = (torch.randn(2, 2, 2048, cfg.d_model, generator=gen, device="cuda")
+         .to(cfg.dtype))
+    pos = torch.arange(2048, device="cuda")[None]
+
+    def stage_fn(layers, act):
+        return tf._stage_apply(cfg, tf._unstack(layers), act, pos)
+
+    with torch.no_grad():
+        _reset_launch_counts()
+        got = pipeline_apply(stage_fn, stage, x, mesh,
+                             num_microbatches=2).full_tensor()
+        torch.cuda.synchronize()
+        launches = _launch_counts()
+        want = torch.stack([tf._stage_apply(cfg, tf.unstack_layers(params),
+                                            x[i], pos) for i in range(2)])
+    err = (got.float() - want.float()).abs().max().item()
+    check(err <= PIPE_TOL, f"pipeline_apply at pp = 1: max abs err {err} "
+          f"against _stage_apply, tol {PIPE_TOL}")
+    print(f"[mesh] pipeline_apply at pp = 1, 2 microbatches of [2, 2048, "
+          f"2048] through 2 flagship layers (bf16): max abs err {err:.3e} "
+          f"against _stage_apply (bitwise: {err == 0.0}); flash launches "
+          f"{launches} (the stage's attention: 2 layers x 2 microbatches)",
+          flush=True)
+    return dict(max_abs_err=err, launches=launches)
+
+
+def _mesh_steps(cfg, mesh, tokens, seed, steps=3, timed=3):
+    """``steps`` counted steps and ``timed`` timed ones of
+    ``make_lm_train_step(cfg, mesh)`` from a seeded init -> (losses,
+    launches a step, step ms)."""
+    from ray_tpu_torch.train import make_lm_train_step
+    init_fn, step_fn, place = make_lm_train_step(cfg, mesh)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    data = place({"tokens": tokens})
+    losses, per_step = [], []
+    for _ in range(steps):
+        _reset_launch_counts()
+        state, metrics = step_fn(state, data)
+        losses.append(metrics["loss"].item())
+        per_step.append(_launch_counts())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, metrics = step_fn(state, data)
+    metrics["loss"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    del state, data
+    torch.cuda.empty_cache()
+    return losses, per_step, step_ms
+
+
+def _first_grad_diffs(cfg, mesh, tokens, seed):
+    """The first step's gradient of every leaf with a one-rank mesh against
+    mesh=None, from the same seeded init -> {leaf: max abs difference}.
+    (The mesh path looks the embedding up with F.embedding, the plain path
+    by indexing: their backwards sum the table's rows in another order.)"""
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.parallel.sharding import shard_pytree
+    tokens = torch.as_tensor(tokens, device="cuda")
+    grads = []
+    for m in (None, mesh):
+        params = tf.transformer_init(
+            torch.Generator(device="cuda").manual_seed(seed), cfg)
+        if m is not None:
+            params = shard_pytree(params, m, tf.transformer_logical_axes(cfg))
+        named = dict(_named_leaves(params))
+        for t in named.values():
+            t.requires_grad_(True)
+        loss = tf.transformer_loss(params, {"tokens": tokens}, cfg, mesh=m)
+        got = torch.autograd.grad(loss, list(named.values()))
+        grads.append({k: g.full_tensor() if m is not None else g
+                      for k, g in zip(named, got)})
+        del params, named, loss, got
+    diffs = {k: (grads[1][k] - g).abs().max().item()
+             for k, g in grads[0].items()}
+    del grads
+    torch.cuda.empty_cache()
+    return diffs
+
+
+def phase_parallel(card):
+    """Phase 23: the mesh (a one-rank NCCL group), the collectives, ring and
+    Ulysses attention, the pipeline, the flagship train step and the PPO
+    learner on a one-rank mesh. Destroys its process group."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer as tf
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.mesh import AXIS_ORDER
+    check(not dist.is_initialized(), "a process group exists before phase 23")
+    mesh = build_mesh(MeshSpec())
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"backend {dist.get_backend()}, world {dist.get_world_size()}")
+        check(mesh.device_type == "cuda"
+              and tuple(mesh.mesh_dim_names) == AXIS_ORDER,
+              f"mesh on {mesh.device_type} with {mesh.mesh_dim_names}")
+        checked = _collectives_at_one_rank(mesh)
+        print(f"[mesh] one-rank NCCL mesh {tuple(mesh.mesh_dim_names)} "
+              f"shape {tuple(mesh.mesh.shape)}; {checked} collective calls "
+              f"over the 7 axes and (dp, fsdp) returned their input "
+              f"bitwise", flush=True)
+        out = {"collectives_checked": checked,
+               "attention": _sp_attention(card, mesh),
+               "pipeline": _pipeline_at_one_rank(mesh)}
+        cfg = flagship_cfg(remat=True)
+        tokens = np.random.default_rng(23).integers(0, cfg.vocab_size,
+                                                    (8, cfg.max_seq))
+        plain = _mesh_steps(cfg, None, tokens, 23)
+        meshed = _mesh_steps(cfg, mesh, tokens, 23)
+        L = cfg.n_layers
+        want_n = (2 * L, L, L, L)
+        check(all(n == want_n for n in meshed[1]),
+              f"mesh steps launched {meshed[1]}, want {want_n} a step")
+        diffs = [abs(a - b) for a, b in zip(plain[0], meshed[0])]
+        check(max(diffs) <= MESH_LOSS_TOL and all(np.isfinite(meshed[0])),
+              f"mesh losses {meshed[0]} against {plain[0]}, tol "
+              f"{MESH_LOSS_TOL}")
+        ratio = meshed[2] / plain[2]
+        print(f"[mesh] flagship train step B 8 x 2048 (remat, tied, AdamW, "
+              f"bf16): losses mesh=None {[round(x, 5) for x in plain[0]]}, "
+              f"one-rank mesh {[round(x, 5) for x in meshed[0]]} (max diff "
+              f"{max(diffs):.3e}, tol {MESH_LOSS_TOL}); launches a step "
+              f"(fwd, dkv, dq, delta) {meshed[1][0]}; step ms mesh=None "
+              f"{plain[2]:.1f}, mesh {meshed[2]:.1f}, ratio {ratio:.4f} "
+              f"(DTensor's cost at one rank) on {card}", flush=True)
+        gdiff = _first_grad_diffs(cfg, mesh, tokens, 23)
+        print(f"[mesh] the first step's gradients, one-rank mesh against "
+              f"mesh=None, max abs diff by leaf: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in gdiff.items()), flush=True)
+        ring_cfg = dataclasses.replace(cfg, attn_impl="ring")
+        params = tf.transformer_init(
+            torch.Generator(device="cuda").manual_seed(23), cfg)
+        with torch.no_grad():
+            _reset_launch_counts()
+            ring = tf.transformer_loss(params, {"tokens": tokens}, ring_cfg,
+                                       mesh=mesh).full_tensor().item()
+            ring_launches = _launch_counts()
+            flash = tf.transformer_loss(params, {"tokens": tokens}, cfg,
+                                        mesh=mesh).full_tensor().item()
+        del params
+        torch.cuda.empty_cache()
+        check(abs(ring - flash) <= MESH_LOSS_TOL,
+              f"ring loss {ring} against the flash loss {flash}")
+        print(f"[mesh] loss at the first step's weights, attn_impl ring at "
+              f"n = 1 {ring:.6f} against flash {flash:.6f} (diff "
+              f"{abs(ring - flash):.3e}, tol {MESH_LOSS_TOL}); ring's flash "
+              f"launches {ring_launches}", flush=True)
+        out.update(train=dict(losses_plain=plain[0], losses_mesh=meshed[0],
+                              launches_per_step=meshed[1][0],
+                              launches=tuple(sum(n[i] for n in meshed[1])
+                                             for i in range(4)),
+                              step_ms_plain=plain[2], step_ms_mesh=meshed[2],
+                              ratio=ratio, ring_loss=ring, flash_loss=flash,
+                              ring_launches=ring_launches,
+                              first_grad_diffs=gdiff))
+        out["ppo"] = _ppo_on_mesh(card, mesh)
+    finally:
+        dist.destroy_process_group()
+    check(not dist.is_initialized(), "phase 23 left its process group")
+    return out
+
+
+def _ppo_on_mesh(card, mesh):
+    """One PPOLearner.update with a one-rank mesh against mesh=None (f32)."""
+    from ray_tpu_torch.rl import PPOLearner, SampleBatch
+    from ray_tpu_torch.rl import sample_batch as sb
+    spec = {"obs_dim": 4, "num_actions": 2, "hiddens": (64, 64)}
+    rng = np.random.default_rng(25)
+    f32 = lambda x: np.asarray(x, np.float32)
+    batch = SampleBatch({
+        sb.OBS: f32(rng.standard_normal((2048, 4))),
+        sb.ACTIONS: f32(rng.integers(0, 2, 2048)),
+        sb.ACTION_LOGP: f32(np.log(0.5) + 0.3 * rng.standard_normal(2048)),
+        sb.ADVANTAGES: f32(rng.standard_normal(2048)),
+        sb.VF_PREDS: f32(rng.standard_normal(2048)),
+        sb.VALUE_TARGETS: f32(rng.standard_normal(2048)),
+    })
+    results = []
+    for m in (None, mesh):
+        learner = PPOLearner(spec, mesh=m, num_sgd_iter=8,
+                             sgd_minibatch_size=256, seed=0)
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        stats = learner.update(batch)
+        ms = (time.perf_counter() - t0) * 1e3
+        results.append((stats, learner.get_weights(), ms, _launch_counts()))
+    (s0, w0, ms0, _), (s1, w1, ms1, n1) = results
+    leaf = lambda t: ([x for v in (t.values() if isinstance(t, dict) else t)
+                       for x in leaf(v)] if isinstance(t, (dict, list, tuple))
+                      else [t])
+    err = max(float(np.max(np.abs(a - b))) for a, b in zip(leaf(w0),
+                                                           leaf(w1)))
+    stat_err = max(abs(s0[k] - s1[k]) for k in s0)
+    check(err <= MESH_PPO_TOL and stat_err <= MESH_PPO_TOL * max(
+        1.0, max(abs(v) for v in s0.values())) and n1 == (0, 0, 0, 0),
+        f"PPO with a one-rank mesh: weights err {err}, stats err "
+        f"{stat_err}, flash launches {n1}")
+    print(f"[mesh] PPOLearner.update (2,048 rows, 8 epochs of 256, f32) with "
+          f"a one-rank mesh against none: weights max err {err:.3e}, stats "
+          f"max err {stat_err:.3e} (tol {MESH_PPO_TOL}); update ms "
+          f"mesh=None {ms0:.1f}, mesh {ms1:.1f} on {card}", flush=True)
+    return dict(weights_err=err, stats_err=stat_err, ms_plain=ms0,
+                ms_mesh=ms1, launches=n1)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -3016,6 +3368,14 @@ def main() -> int:
                  "shared_policy_coop": rest["coop"],
                  "bandit_ucb": rest["bandit_ucb"],
                  "bandit_ts": rest["bandit_ts"]})
+    t0 = time.perf_counter()
+    par = phase_parallel(card)
+    print(f"[phase] parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    runs.update({"mesh_train": par["train"],
+                 "ring_n1": par["attention"]["ring"],
+                 "ulysses_n1": par["attention"]["ulysses"],
+                 "pipeline_n1": par["pipeline"],
+                 "ppo_mesh": par["ppo"]})
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

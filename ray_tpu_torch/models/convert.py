@@ -1,7 +1,8 @@
 """Weights from the JAX package into the port.
 
 ``params_from_jax`` takes the tree that ``ray_tpu.models.transformer_init``
-returns (dense, or with the stacked ``moe`` subtree of an MoE model),
+returns (dense, or with the stacked ``moe`` subtree of an MoE model; its
+layers [P, L/P, ...] when ``cfg.pp_stages > 1``),
 ``vit_params_from_jax`` the tree of ``ray_tpu.models.vit_init`` and
 ``resnet_variables_from_jax`` the ``{"params", "batch_stats"}`` tree of a
 flax ``ResNet`` and ``rl_params_from_jax`` the tree of an RL catalog
@@ -33,9 +34,19 @@ def _convert(tree, dev: torch.device, dtype) -> Dict[str, Any]:
 
 
 def _check_layers(layers, cfg) -> None:
-    if np.shape(layers["ln1"])[0] != cfg.n_layers:
-        raise ValueError("params are not stacked [n_layers, ...] "
-                         "(pipeline-staged trees are not supported)")
+    """The layer tree is stacked [n_layers, ...], or [pp_stages,
+    layers_per_stage, ...] when ``cfg.pp_stages > 1`` (as
+    ``transformer_init`` stacks it in both packages)."""
+    if cfg.pp_stages > 1:
+        want, name = (cfg.pp_stages, cfg.layers_per_stage), \
+            "[pp_stages, layers_per_stage, d]"
+    else:
+        want, name = (cfg.n_layers,), "[n_layers, d]"
+    shape = tuple(np.shape(layers["ln1"]))
+    if shape != want + (cfg.d_model,):
+        raise ValueError(f"params are not stacked {name} = "
+                         f"{want + (cfg.d_model,)}: the layer tree's ln1 "
+                         f"is {shape}")
     if ("moe" in layers) != bool(cfg.num_experts):
         raise ValueError("num_experts does not match the tree's layers "
                          f"(keys {sorted(layers)})")

@@ -13,9 +13,17 @@ With ``num_experts > 0`` each layer's MLP is a Mixture-of-Experts layer
 ``[L, d, e]``, ``w1``/``w3 [L, e, d, f]``, ``w2 [L, e, f, d]``) in place of
 ``mlp``, as in the JAX package.
 
-Not ported yet (ROADMAP.md): expert parallelism, ring/Ulysses attention,
-pipeline stages (``pp_stages``, ``num_microbatches``) and
-``transformer_logical_axes``.
+On a mesh (``mesh=`` a ``parallel.build_mesh`` mesh) the same code runs on
+DTensors: ``transformer_logical_axes`` names every leaf's dims, the train
+step places the params by those names (``parallel/sharding.py``), and
+DTensor's sharding propagation inserts the collectives where GSPMD does in
+the JAX package. Attention runs on each rank's local blocks
+(``shard_map``): ``mha`` with the batch over the data axes and the heads
+over ``tp``, or ring/Ulysses attention over ``sp``. With ``pp_stages > 1``
+the layer tree is stacked ``[P, L/P, ...]`` and the layers run as a GPipe
+pipeline over the ``pp`` axis (``ops/pipeline.py``). Expert parallelism (an
+``ep`` axis above 1) is not ported yet (ROADMAP.md A.3); nor are the MPMD
+stage functions (A.4).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models import moe
 from ray_tpu_torch.ops.attention import mha
+from ray_tpu_torch.parallel.mesh import data_axes, mesh_sizes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,9 +53,11 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     dtype: Any = torch.bfloat16           # compute dtype
     param_dtype: Any = torch.float32
-    attn_impl: str = "auto"               # auto|reference|blockwise|flash
+    attn_impl: str = "auto"               # auto|reference|blockwise|flash|ring|ulysses
     causal: bool = True                   # False: bidirectional
     remat: bool = True                    # recompute layers in the backward
+    pp_stages: int = 1                    # >1: split layers into pipeline stages
+    num_microbatches: int = 1             # pipeline microbatches
     # MoE (0 = dense)
     num_experts: int = 0
     # None -> moe_apply's training default (1.25); inference makes routing
@@ -54,12 +65,6 @@ class TransformerConfig:
     moe_capacity_factor: Optional[float] = None
     expert_top_k: int = 1
     tied_embeddings: bool = False
-
-    def __post_init__(self):
-        if self.attn_impl in ("ring", "ulysses"):
-            raise NotImplementedError(
-                f"attn_impl={self.attn_impl!r} (sequence parallelism) is not "
-                "ported yet (ROADMAP.md, queue A)")
 
     @property
     def kv_heads(self) -> int:
@@ -72,6 +77,13 @@ class TransformerConfig:
     @property
     def ff_dim(self) -> int:
         return self.d_ff if self.d_ff is not None else 4 * self.d_model
+
+    @property
+    def layers_per_stage(self) -> int:
+        if self.n_layers % self.pp_stages:
+            raise ValueError(f"n_layers={self.n_layers} does not split into "
+                             f"pp_stages={self.pp_stages}")
+        return self.n_layers // self.pp_stages
 
 
 # ---------------------------------------------------------------------------
@@ -96,9 +108,13 @@ def transformer_init(generator: torch.Generator, cfg: TransformerConfig,
     def ones(*shape):
         return torch.ones(shape, dtype=pd, device=dev)
 
+    layers = layers_init(normal, ones, cfg)
+    if cfg.pp_stages > 1:
+        layers = _map_tree(layers, lambda a: a.reshape(
+            (cfg.pp_stages, cfg.layers_per_stage) + a.shape[1:]))
     params = {
         "embed": normal(cfg.vocab_size, d),
-        "layers": layers_init(normal, ones, cfg),
+        "layers": layers,
         "final_norm": ones(d),
     }
     if not cfg.tied_embeddings:
@@ -128,18 +144,66 @@ def layers_init(normal, ones, cfg: TransformerConfig) -> Dict[str, Any]:
     return layers
 
 
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def transformer_logical_axes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """Dict tree mirroring params: per-leaf logical dim names (see
+    parallel/sharding.py DEFAULT_RULES)."""
+    stage = ("stage", "layers") if cfg.pp_stages > 1 else ("layers",)
+
+    def L(*axes):  # layer leaf: leading stacked dim(s)
+        return stage + axes
+    layer = {
+        "attn": {
+            "wq": L("embed", "heads", "kv"),
+            "wk": L("embed", "heads", "kv"),
+            "wv": L("embed", "heads", "kv"),
+            "wo": L("heads", "kv", "embed"),
+        },
+        "ln1": L("embed"),
+        "ln2": L("embed"),
+    }
+    if cfg.num_experts:
+        layer["moe"] = {
+            "router": L("embed", None),
+            "w1": L("expert", "embed", "expert_mlp"),
+            "w3": L("expert", "embed", "expert_mlp"),
+            "w2": L("expert", "expert_mlp", "embed"),
+        }
+    else:
+        layer["mlp"] = {
+            "w1": L("embed", "mlp"),
+            "w3": L("embed", "mlp"),
+            "w2": L("mlp", "embed"),
+        }
+    axes = {
+        "embed": ("vocab", "embed"),
+        "layers": layer,
+        "final_norm": ("embed",),
+    }
+    if not cfg.tied_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
+
+
 def unstack_layers(params) -> List[Dict[str, Any]]:
     """The stacked layer tree as one dict per layer, by ``unbind``: views, no
     copy. Under autograd each leaf's backward stacks the L layer gradients
     once; indexing layer ``i`` would instead add a full-size zero gradient
     per layer."""
-    def split(tree):
-        if isinstance(tree, dict):
-            parts = {k: split(v) for k, v in tree.items()}
-            return [{k: parts[k][i] for k in parts}
-                    for i in range(len(next(iter(parts.values()))))]
-        return tree.unbind(0)
-    return split(params["layers"])
+    return _unstack(params["layers"])
+
+
+def _unstack(tree):
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in parts}
+                for i in range(len(next(iter(parts.values()))))]
+    return tree.unbind(0)
 
 
 def check_device(params, dev: torch.device, key: str = "embed") -> None:
@@ -187,8 +251,42 @@ def _mlp(cfg: TransformerConfig, layer, h):
     return (gate * up) @ m["w2"].to(dt)
 
 
+def _attention(cfg: TransformerConfig, q, k, v, mesh=None):
+    """The JAX ``_attention``'s dispatch: ring or Ulysses attention over the
+    mesh's ``sp`` axis, else ``mha`` (on a mesh, on each rank's local
+    blocks: batch over the data axes, heads over ``tp``; attention is local
+    in both, so this is exact)."""
+    impl = cfg.attn_impl
+    if impl in ("ring", "ulysses"):
+        if mesh is None:
+            raise ValueError(f"attn_impl={impl!r} (sequence parallelism) "
+                             "runs over a mesh's 'sp' axis: pass mesh=")
+        from ray_tpu_torch.ops.ring_attention import ring_attention
+        from ray_tpu_torch.ops.ulysses import ulysses_attention
+        fn = ring_attention if impl == "ring" else ulysses_attention
+        return fn(q, k, v, mesh, causal=cfg.causal)
+    if mesh is None:
+        return mha(q, k, v, causal=cfg.causal, impl=impl)
+    from ray_tpu_torch.parallel.sharding import shard_map
+    spec = (data_axes(), None, "tp", None)
+    return shard_map(lambda q, k, v: mha(q, k, v, causal=cfg.causal,
+                                         impl=impl),
+                     mesh, (spec, spec, spec), spec)(q, k, v)
+
+
 def _layer_apply(cfg: TransformerConfig, layer, x, positions,
-                 return_kv: bool = False):
+                 return_kv: bool = False, mesh=None):
+    if mesh is None:
+        return _layer_body(cfg, layer, x, positions, return_kv, None)
+    # DTensors: plain tensors made in the layer (RoPE's angles) count as
+    # replicated. Entered here, not by the caller, so that a remat
+    # recompute in the backward runs under it too.
+    from torch.distributed.tensor.experimental import implicit_replication
+    with implicit_replication():
+        return _layer_body(cfg, layer, x, positions, return_kv, mesh)
+
+
+def _layer_body(cfg, layer, x, positions, return_kv, mesh):
     dt = cfg.dtype
     h = _rmsnorm(x, layer["ln1"])
     a = layer["attn"]
@@ -197,7 +295,7 @@ def _layer_apply(cfg: TransformerConfig, layer, x, positions,
     v = torch.einsum("bse,ehd->bshd", h, a["wv"].to(dt))
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    o = mha(q, k, v, causal=cfg.causal, impl=cfg.attn_impl)
+    o = _attention(cfg, q, k, v, mesh)
     o = torch.einsum("bshd,hde->bse", o, a["wo"].to(dt))
     x = x + o
     y = _mlp(cfg, layer, _rmsnorm(x, layer["ln2"]))
@@ -208,7 +306,7 @@ def _layer_apply(cfg: TransformerConfig, layer, x, positions,
     return x + y
 
 
-def _stage_apply(cfg: TransformerConfig, layers, x, positions):
+def _stage_apply(cfg: TransformerConfig, layers, x, positions, mesh=None):
     """Apply the layers in order (the JAX version's ``lax.scan``). With
     ``cfg.remat`` and grad enabled each layer runs under
     ``torch.utils.checkpoint`` (``jax.checkpoint``): only its input is kept,
@@ -216,10 +314,10 @@ def _stage_apply(cfg: TransformerConfig, layers, x, positions):
     remat = cfg.remat and torch.is_grad_enabled()
     for layer in layers:
         if remat:
-            x = checkpoint(_layer_apply, cfg, layer, x, positions,
-                           use_reentrant=False)
+            x = checkpoint(_layer_apply, cfg, layer, x, positions, False,
+                           mesh, use_reentrant=False)
         else:
-            x = _layer_apply(cfg, layer, x, positions)
+            x = _layer_apply(cfg, layer, x, positions, mesh=mesh)
     return x
 
 
@@ -230,11 +328,18 @@ def _head(cfg: TransformerConfig, params, x):
 
 
 def transformer_apply(params, tokens, cfg: TransformerConfig, *,
-                      positions=None, device=None):
+                      mesh=None, positions=None, device=None):
     """tokens: [B, S] int -> logits [B, S, vocab] (compute in cfg.dtype,
-    logits float32)."""
+    logits float32). With ``mesh`` the params are DTensors (placed by
+    ``transformer_logical_axes``), tokens a DTensor or the same tensor on
+    every rank (placed with the batch over the data axes), and the logits a
+    DTensor."""
     dev = resolve_device(device)
     check_device(params, dev)
+    if mesh is not None:
+        return _apply_on_mesh(params, tokens, cfg, mesh, positions, dev)
+    if cfg.pp_stages > 1:
+        raise ValueError("pp_stages>1 requires a mesh")
     tokens = tokens.to(dev)
     b, s = tokens.shape
     if positions is None:
@@ -244,19 +349,105 @@ def transformer_apply(params, tokens, cfg: TransformerConfig, *,
     return _head(cfg, params, x)
 
 
-def transformer_loss(params, batch, cfg: TransformerConfig, *, device=None):
+def _batch_on_mesh(x, mesh, dev):
+    """``x`` as a DTensor with its batch dim over the data axes (a DTensor
+    stays as it is)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel.sharding import batch_sharding, place
+    if isinstance(x, DTensor):
+        return x
+    x = torch.as_tensor(x).to(dev)
+    return place(x, batch_sharding(mesh, x.dim()))
+
+
+def _apply_on_mesh(params, tokens, cfg, mesh, positions, dev):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ray_tpu_torch.parallel.sharding import place, replicated
+    if cfg.num_experts and mesh_sizes(mesh).get("ep", 1) > 1:
+        raise NotImplementedError("expert parallelism (an 'ep' mesh axis "
+                                  "above 1) is not ported yet (ROADMAP.md "
+                                  "A.3)")
+    tokens = _batch_on_mesh(tokens, mesh, dev)
+    # plain params count as replicated, as unplaced arrays do under jit
+    params = _map_tree(params, lambda a: a if isinstance(a, DTensor)
+                       else place(a, replicated(mesh)))
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=dev).expand(b, s)
+    with implicit_replication():
+        # the lookup on a whole table (indexing has no sharding rule, and
+        # F.embedding's for a vocab-sharded table fails on batch-sharded
+        # tokens); the head's product below uses the sharded one
+        table = params["embed"].redistribute(
+            placements=replicated(mesh)[1])
+        x = F.embedding(tokens, table.to(cfg.dtype))
+        if cfg.pp_stages > 1:
+            x = _pipeline(cfg, params["layers"], x, positions, mesh)
+        else:
+            # a DTensor, so that RoPE's cos and sin are too: the backward
+            # of a product runs outside implicit_replication
+            positions = place(positions, replicated(mesh))
+            x = _stage_apply(cfg, unstack_layers(params), x, positions, mesh)
+        return _head(cfg, params, x)
+
+
+def _pipeline(cfg, layers, x, positions, mesh):
+    """The JAX pipeline branch: microbatches of the batch through the
+    stages over ``pp`` (``ops/pipeline.py``), each stage's layers applied
+    on its ranks' local blocks."""
+    from ray_tpu_torch.ops.pipeline import pipeline_apply
+    m = cfg.num_microbatches
+    b, s = x.shape[:2]
+    if b % m:
+        raise ValueError(f"batch {b} % microbatches {m} != 0")
+    pp = mesh_sizes(mesh)["pp"]
+    if pp != cfg.pp_stages:
+        # the JAX function would apply only some stages (ROADMAP.md C)
+        raise ValueError(f"pp_stages={cfg.pp_stages} needs a mesh whose "
+                         f"'pp' axis has {cfg.pp_stages} ranks, not {pp}")
+    xs = x.reshape(m, b // m, s, cfg.d_model)
+    # positions are identical across batch rows; a [1, S] row broadcasts
+    # against any local microbatch
+    pos_s = positions[:1]
+
+    def stage_fn(stage_layers, act):
+        return _stage_apply(cfg, _unstack(stage_layers), act, pos_s)
+
+    out = pipeline_apply(stage_fn, layers, xs, mesh, num_microbatches=m)
+    return out.reshape(b, s, cfg.d_model)
+
+
+def transformer_loss(params, batch, cfg: TransformerConfig, *, mesh=None,
+                     device=None):
     """batch: {"tokens": [B, S]} next-token cross-entropy on f32 logits, the
     mean over non-final positions; with ``batch["mask"]`` ([B, S]) the mean
     over the masked-in targets, ``(nll * mask[:, 1:]).sum() /
-    max(mask[:, 1:].sum(), 1)``."""
-    tokens = batch["tokens"]
-    logits = transformer_apply(params, tokens, cfg, device=device)
-    targets = tokens.to(logits.device)[:, 1:].long()
+    max(mask[:, 1:].sum(), 1)``. With ``mesh`` both are global: sums over
+    every rank's rows, a 0-d DTensor."""
+    tokens, mask = batch["tokens"], batch.get("mask")
+    if mesh is None:
+        logits = transformer_apply(params, tokens, cfg, device=device)
+        return _nll(logits, tokens.to(logits.device),
+                    None if mask is None else mask.to(logits.device))
+    from torch.distributed.tensor.experimental import implicit_replication
+    dev = resolve_device(device)
+    tokens = _batch_on_mesh(tokens, mesh, dev)
+    if mask is not None:
+        mask = _batch_on_mesh(mask, mesh, dev)
+    logits = transformer_apply(params, tokens, cfg, mesh=mesh, device=dev)
+    with implicit_replication():
+        return _nll(logits, tokens, mask)
+
+
+def _nll(logits, tokens, mask):
+    targets = tokens[:, 1:].long()
     logp = torch.log_softmax(logits[:, :-1], dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
-    mask = batch.get("mask")
     if mask is not None:
-        mask = mask.to(logits.device)[:, 1:]
+        mask = mask[:, 1:]
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
 

@@ -13,8 +13,15 @@ betas (0.9, 0.999), eps 1e-8, no weight decay). Minibatches follow the JAX
 learner's numpy ``default_rng(seed)``: one ``permutation`` an epoch, the
 remainder dropped, so both learners given the same weights and seed see the
 same rows in the same order. ``LearnerGroup`` holds one learner, in this
-thread or as an actor of the port's runtime; the learner's ``mesh`` waits
-for the port's parallel ops.
+thread or as an actor of the port's runtime.
+
+With ``mesh`` (``parallel.build_mesh``; every rank of it builds the learner
+with the same arguments and calls ``update`` with the same batch) the
+params and Adam's moments are replicated DTensors and each minibatch is
+sharded over the ``("dp", "fsdp")`` axes, as the JAX learner's jit
+shardings have it (``ray_tpu/rl/learner.py:84-96``): the loss, its
+advantage statistics and the gradient are the global minibatch's, and the
+gradient's all-reduce is DTensor's.
 """
 
 from __future__ import annotations
@@ -160,35 +167,59 @@ class ModuleLearner:
     learners add their losses."""
 
     def __init__(self, module_spec: dict, *, lr: float, grad_clip: float,
-                 seed: int, device=None):
+                 seed: int, device=None, mesh=None):
         self.device = resolve_device(device)
         self.module = make_module(module_spec)
         self.grad_clip = grad_clip
+        self.mesh = mesh
         self.params = seeded_init(self.module.init, seed, self.device)
+        if mesh is not None:
+            from ray_tpu_torch.parallel.sharding import place, replicated
+            self.params = _map_rl(self.params, lambda _, t: place(
+                t, replicated(mesh)))
         self._leaves = trainable_(self.params)
         self.opt = adam(self._leaves, lr)
 
     def clipped_step(self, loss, stats) -> Dict[str, torch.Tensor]:
         """One clipped Adam step on ``loss`` -> ``stats`` and the loss as
         0-d tensors (no host sync)."""
-        self.opt.zero_grad(set_to_none=False)
+        if self.mesh is None:
+            self.opt.zero_grad(set_to_none=False)
+            loss.backward()
+            clip_by_global_norm_([p.grad for p in self._leaves],
+                                 self.grad_clip)
+            self.opt.step()
+            return {k: v.detach() for k, v in
+                    {**stats, "total_loss": loss}.items()}
+        self.opt.zero_grad(set_to_none=True)
         loss.backward()
-        clip_by_global_norm_([p.grad for p in self._leaves], self.grad_clip)
+        for p in self._leaves:
+            # the gradient's all-reduce over the minibatch's axes
+            p.grad = p.grad.redistribute(p.device_mesh, p.placements)
+        # replicated: each rank's local gradients are the whole gradients
+        clip_by_global_norm_([p.grad.to_local() for p in self._leaves],
+                             self.grad_clip)
         self.opt.step()
-        return {k: v.detach() for k, v in
+        return {k: v.detach().full_tensor() for k, v in
                 {**stats, "total_loss": loss}.items()}
+
+    def _local_params(self):
+        """The params as plain tensors: each rank's replica on a mesh."""
+        if self.mesh is None:
+            return self.params
+        return _map_rl(self.params, lambda _, t: t.to_local())
 
     def get_weights(self):
         """The weights on the host as numpy, in the JAX package's layout
         (HWIO conv kernels): what either stack's ``set_weights`` takes."""
-        return rl_params_to_numpy(self.params)
+        return rl_params_to_numpy(self._local_params())
 
     def set_weights(self, params) -> bool:
         """Copy ``params`` (a numpy tree as ``get_weights`` of either stack
         returns, or the port's tensors) into the learner's; the optimizer's
         state stays, as in the JAX learner."""
-        copy_tree_(self.params, place_params(params, self.module,
-                                             self.device))
+        copy_tree_(self._local_params(), place_params(params, self.module,
+                                                      self.device))
         return True
 
 
@@ -199,9 +230,10 @@ class PPOLearner(ModuleLearner):
                  clip_param: float = 0.2, vf_clip_param: float = 10.0,
                  vf_loss_coeff: float = 0.5, entropy_coeff: float = 0.0,
                  num_sgd_iter: int = 6, sgd_minibatch_size: int = 128,
-                 grad_clip: float = 0.5, seed: int = 0, device=None):
+                 grad_clip: float = 0.5, seed: int = 0, device=None,
+                 mesh=None):
         super().__init__(module_spec, lr=lr, grad_clip=grad_clip, seed=seed,
-                         device=device)
+                         device=device, mesh=mesh)
         self.num_sgd_iter = num_sgd_iter
         self.minibatch_size = sgd_minibatch_size
         self.loss_kw = dict(clip_param=clip_param,
@@ -234,8 +266,20 @@ class PPOLearner(ModuleLearner):
                 self._rng.permutation(batch.count)).to(self.device)
             for start in range(0, batch.count - size + 1, size):
                 idx = perm[start:start + size]
-                stats = self.sgd_step({k: v[idx] for k, v in cols.items()})
+                stats = self.sgd_step(self._shard(
+                    {k: v[idx] for k, v in cols.items()}))
         return {k: float(v) for k, v in stats.items()}
+
+    def _shard(self, minibatch):
+        """On a mesh, the minibatch's rows over the ``("dp", "fsdp")`` axes
+        (every rank holds the same rows and keeps its block)."""
+        if self.mesh is None:
+            return minibatch
+        from ray_tpu_torch.parallel.mesh import active_mesh
+        from ray_tpu_torch.parallel.sharding import place, spec_placements
+        sub = active_mesh(self.mesh)
+        rows = (sub, spec_placements(sub, (("dp", "fsdp"),)))
+        return {k: place(v, rows) for k, v in minibatch.items()}
 
 
 class LearnerGroup:

@@ -15,9 +15,14 @@ from ``resnet_loss`` in train mode and SGD with Nesterov momentum; its state
 holds the variables ``{"params", "batch_stats"}`` and each step replaces the
 batch statistics with the forward's new ones.
 
-One device, no mesh. The JAX versions place params, optimizer state and
-batch on a mesh and let XLA insert the collectives; sharding comes to the
-port with its parallel slice (ROADMAP.md A.3).
+``make_lm_train_step(cfg, mesh)`` is the JAX step on a mesh: params and
+AdamW's moments are DTensors placed by ``transformer_logical_axes`` and the
+rules, ``place_batch`` shards the batch over the data axes, and DTensor's
+sharding propagation inserts the collectives that XLA inserts (the gradient
+all-reduce over the data axes, fsdp's gathers and reduce-scatters, tp's
+reductions). The loss and the gradient norm are global. ``mesh=None`` is
+one device, as before. The ViT and ResNet steps take no mesh yet
+(ROADMAP.md A.3).
 
 The JAX step donates its state and returns a new one. Here the update is in
 place: ``step_fn`` changes the params (and batch statistics) and the
@@ -37,7 +42,11 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.resnet import ResNet, resnet50_apply, resnet_loss
 from ray_tpu_torch.models.transformer import (TransformerConfig,
                                               transformer_init,
+                                              transformer_logical_axes,
                                               transformer_loss)
+from ray_tpu_torch.parallel.sharding import (DEFAULT_RULES, LogicalRules,
+                                             batch_sharding, place,
+                                             shard_pytree)
 from ray_tpu_torch.models.vit import ViTConfig, vit_init, vit_loss
 
 
@@ -109,14 +118,20 @@ def _step_factory(init_params, optimizer, dev: torch.device,
     return init_fn, place_batch
 
 
-def make_lm_train_step(cfg: TransformerConfig, *,
+def make_lm_train_step(cfg: TransformerConfig, mesh=None, *,
                        learning_rate: float = 3e-4,
-                       weight_decay: float = 0.01, device=None):
+                       weight_decay: float = 0.01,
+                       rules: LogicalRules = DEFAULT_RULES, device=None):
     """Returns (init_fn(generator | params) -> TrainState,
     step_fn(state, batch) -> (state, metrics), place_batch(batch) -> batch
     on the device). A batch is ``{"tokens": [B, S] int}`` with an optional
-    ``"mask"`` [B, S]."""
+    ``"mask"`` [B, S]. With ``mesh`` (``parallel.build_mesh``, on the
+    device's type) the step runs on every rank of it, each rank calling it
+    with the same arguments and batch (module docstring)."""
     dev = resolve_device(device)
+    if mesh is not None:
+        return _mesh_lm_step(cfg, mesh, rules, learning_rate, weight_decay,
+                             dev)
     init_fn, place_batch = _step_factory(
         lambda gen: transformer_init(gen, cfg, device=dev),
         _adamw(learning_rate, weight_decay), dev)
@@ -129,6 +144,50 @@ def make_lm_train_step(cfg: TransformerConfig, *,
         state = _update(state, leaves, grads)
         return state, {"loss": loss.detach(), "grad_norm": gnorm,
                        "step": state.step}
+
+    return init_fn, step_fn, place_batch
+
+
+def _mesh_lm_step(cfg, mesh, rules, learning_rate, weight_decay, dev):
+    if mesh.device_type != dev.type:
+        raise ValueError(f"the mesh is on {mesh.device_type}, the call "
+                         f"asks for {dev}")
+    axes = transformer_logical_axes(cfg)
+    adamw = _adamw(learning_rate, weight_decay)
+
+    def init_fn(key) -> TrainState:
+        """From a ``torch.Generator`` on the device, the same seed on every
+        rank, or from a params dict (``convert`` gives one from JAX
+        weights): placed on the mesh, with AdamW's moments placed alike."""
+        params = transformer_init(key, cfg, device=dev) \
+            if isinstance(key, torch.Generator) else key
+        params = shard_pytree(params, mesh, axes, rules)
+        leaves = _leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        return TrainState(params, adamw(leaves), 0)
+
+    def step_fn(state: TrainState, batch):
+        leaves = _leaves(state.params)
+        loss = transformer_loss(state.params, batch, cfg, mesh=mesh,
+                                device=dev)
+        grads = torch.autograd.grad(loss, leaves)
+        # each gradient in its parameter's placements: the all-reduce over
+        # the data axes (a reduce-scatter where fsdp shards the parameter)
+        grads = [g.redistribute(p.device_mesh, p.placements)
+                 for g, p in zip(grads, leaves)]
+        gnorm = global_norm(grads).full_tensor()
+        state = _update(state, leaves, grads)
+        return state, {"loss": loss.detach().full_tensor(),
+                       "grad_norm": gnorm, "step": state.step}
+
+    def place_batch(batch):
+        out = {}
+        for k, v in batch.items():
+            v = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v)
+                                else v).to(dev)
+            out[k] = place(v, batch_sharding(mesh, v.dim(), rules))
+        return out
 
     return init_fn, step_fn, place_batch
 

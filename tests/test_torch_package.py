@@ -10,10 +10,14 @@ import torch
 
 import ray_tpu_torch
 from ray_tpu_torch import models as tmodels
+from ray_tpu_torch import ops as tops
+from ray_tpu_torch import parallel as tparallel
 from ray_tpu_torch import rl as trl
 from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.ops import pipeline as tpipeline
+from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.rl import offline as toffline
 from ray_tpu_torch.rl import multi_agent as tmulti
 from ray_tpu_torch.rl.algorithms import (MADDPG, QMIX, A2CConfig, APPOConfig,
@@ -97,7 +101,14 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/core/remote_function.py",
                    "ray_tpu_torch/core/actor.py",
                    "ray_tpu_torch/core/runtime_local.py",
-                   "ray_tpu_torch/core/api.py", "chip_smoke.py"):
+                   "ray_tpu_torch/core/api.py",
+                   "ray_tpu_torch/parallel/__init__.py",
+                   "ray_tpu_torch/parallel/mesh.py",
+                   "ray_tpu_torch/parallel/sharding.py",
+                   "ray_tpu_torch/parallel/collectives.py",
+                   "ray_tpu_torch/ops/ring_attention.py",
+                   "ray_tpu_torch/ops/ulysses.py",
+                   "ray_tpu_torch/ops/pipeline.py", "chip_smoke.py"):
         assert module in names
 
 
@@ -179,11 +190,26 @@ ENTRY_POINTS = {
     "MultiAgentCollector": lambda cfg: tmulti.MultiAgentCollector(
         tmulti.TwoStepCoopEnv(), {"shared": trl.make_module(
             {"obs_dim": 2, "num_actions": 2})}, {}),
+    "build_mesh": lambda cfg: tparallel.build_mesh(tparallel.MeshSpec()),
+    "best_dp_fsdp_split": lambda cfg: tmesh.best_dp_fsdp_split(8, 1 << 30),
+    "ring_attention": lambda cfg: tops.ring_attention(
+        *_QKV, tparallel.build_mesh(tparallel.MeshSpec(sp=2))),
+    "ulysses_attention": lambda cfg: tops.ulysses_attention(
+        *_QKV, tparallel.build_mesh(tparallel.MeshSpec(sp=2))),
+    "pipeline_apply": lambda cfg: tpipeline.pipeline_apply(
+        lambda p, a: a, {}, torch.zeros(1, 1, 4),
+        tparallel.build_mesh(tparallel.MeshSpec(pp=2))),
+    "make_lm_train_step(mesh=)": lambda cfg: ttrain.make_lm_train_step(
+        cfg, mesh=object()),
+    "transformer_apply(mesh=)": lambda cfg: tmodels.transformer_apply(
+        {}, torch.zeros(1, 4, dtype=torch.long), cfg, mesh=object()),
+    "PPOLearner(mesh=)": lambda cfg: trl.PPOLearner(RL_SPEC, mesh=object()),
     # Not here: rl.algorithms.Bandit. Like the JAX package's, it skips the
     # base init and runs on the host only: it takes no device, so it has
     # nothing to refuse without a card (ROADMAP.md C).
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
+_QKV = [torch.zeros(1, 4, 2, 8)] * 3
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
                         d_model=32, n_layers=1, n_heads=2)
 

@@ -133,8 +133,16 @@ def test_num_params_matches_jax():
 @pytest.mark.parametrize("kw", [{"attn_impl": "ring"},
                                 {"attn_impl": "ulysses"}])
 def test_later_slices_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.TransformerConfig(**kw)
+    # sequence parallelism is ported (ROADMAP.md A.3): the config builds,
+    # and without a mesh, whose "sp" axis it runs over, the forward refuses
+    # it (tests/test_torch_train_mesh.py runs it on one)
+    cfg = ttf.TransformerConfig(vocab_size=16, d_model=32, n_layers=1,
+                                n_heads=2, **kw)
+    params = ttf.transformer_init(torch.Generator().manual_seed(0), cfg,
+                                  device="cpu")
+    with pytest.raises(ValueError, match="pass mesh="):
+        ttf.transformer_apply(params, torch.zeros(1, 4, dtype=torch.long),
+                              cfg, device="cpu")
 
 
 def test_params_from_jax_rejects_mismatched_head():
