@@ -191,10 +191,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    leaf's first-step gradient with the mesh against ``mesh=None``; one
    ``PPOLearner.update`` with the mesh within 1e-5 of ``mesh=None`` (f32).
    The phase destroys its process group.
+24. Serve over HTTP (``ray_tpu_torch.serve`` on the port's in-process
+   runtime): the flagship (phase 3's configuration, bf16, weights drawn on
+   the card from a seed) behind ``@serve.deployment(num_replicas=1)``,
+   whose one ``@serve.batch(max_batch_size=8)`` method left-pads the
+   prompts, calls ``generate`` (prompts of 128 tokens, 256 greedy tokens)
+   and records each batch's prompts in order; started by ``serve.run(...,
+   http_host="127.0.0.1")`` on an ephemeral port. 8 client threads each
+   POST one seeded prompt at once, for one warm round and then 4 timed
+   rounds. Every response must be 200; each response's tokens must equal
+   those of a direct ``generate`` of the batch the deployment formed, in
+   its row order; the forward kernel must launch n_layers times per
+   ``generate`` call the deployment made (and no backward kernel); after
+   ``serve.shutdown()`` no proxy may be open and no replica alive, and
+   after ``shutdown()`` no runtime thread left. Prints the batch sizes,
+   requests/s, generated tokens/s through HTTP and p50/p99 request latency
+   of the timed rounds, beside phase 3's direct ``generate`` tokens/s from
+   this run and their ratio (the serve front's cost).
 
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-23 print their seconds.
+the PPO learner in phase 23. Phases 17-24 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -3308,6 +3325,159 @@ def _ppo_on_mesh(card, mesh):
                 ms_mesh=ms1, launches=n1)
 
 
+# ---------------------------------------------------------------------------
+# phase 24: serve over HTTP
+# ---------------------------------------------------------------------------
+
+HTTP_CLIENTS = 8
+HTTP_ROUNDS = 5          # one warm round, then the timed ones
+HTTP_BATCH_WAIT_S = 0.1  # the @serve.batch window
+
+
+def _lm_deployment(serve, cfg, seed, new):
+    """The flagship behind ``@serve.deployment``: its weights are drawn on
+    the card from ``seed`` (``device=None``), and one ``@serve.batch``
+    method left-pads the prompts and calls ``generate`` (one at a time on
+    the card), recording each batch's prompts in the order it took them."""
+    import threading
+
+    from ray_tpu_torch.models import generate, transformer_init
+
+    @serve.deployment(num_replicas=1, route_prefix="/generate")
+    class LMServer:
+        def __init__(self):
+            self.params = transformer_init(
+                torch.Generator(device="cuda").manual_seed(seed), cfg)
+            self.batches = []
+            self.lock = threading.Lock()
+
+        @serve.batch(max_batch_size=HTTP_CLIENTS,
+                     batch_wait_timeout_s=HTTP_BATCH_WAIT_S)
+        def generate_batch(self, prompts):
+            width = max(len(p) for p in prompts)
+            arr = np.zeros((len(prompts), width), np.int64)
+            for i, p in enumerate(prompts):
+                arr[i, width - len(p):] = p
+            with self.lock:
+                self.batches.append(arr)
+                return generate(self.params, torch.from_numpy(arr), cfg,
+                                max_new_tokens=new).tolist()
+
+        def __call__(self, prompt=None):
+            return {"tokens": self.generate_batch(prompt)}
+
+        def recorded(self):
+            return self.batches, self.params
+
+    return LMServer
+
+
+def _post_json(url, payload, timeout=120):
+    """(status, json body or None, seconds) of one POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.code, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        code, body = e.code, None
+    return code, body, time.perf_counter() - t0
+
+
+def phase_http_serve(card, direct_tokens_per_s):
+    """Phase 24: the flagship served over HTTP through ``serve.run``, with
+    8 clients posting at once for one warm round and 4 timed rounds."""
+    import concurrent.futures
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.core import api as core_api
+    from ray_tpu_torch.models import generate
+    from ray_tpu_torch.serve import http_proxy
+    from ray_tpu_torch.serve.controller import Replica
+    cfg, prompt_len, new = flagship_cfg(), 128, 256
+    prompts = np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (HTTP_ROUNDS, HTTP_CLIENTS, prompt_len)).tolist()
+    rt.init()
+    try:
+        handle = serve.run(_lm_deployment(serve, cfg, 24, new).bind(),
+                           http_host="127.0.0.1")
+        url = f"http://127.0.0.1:{handle.http_port}/generate"
+        answers, latencies, timed_s = {}, [], 0.0
+        _reset_launch_counts()
+        with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+            for r in range(HTTP_ROUNDS):
+                t0 = time.perf_counter()
+                out = list(pool.map(lambda p: _post_json(
+                    url, {"prompt": p}), prompts[r]))
+                if r:
+                    timed_s += time.perf_counter() - t0
+                    latencies += [sec for _, _, sec in out]
+                codes = [code for code, _, _ in out]
+                check(codes == [200] * HTTP_CLIENTS,
+                      f"http-serve round {r}: statuses {codes}")
+                answers.update({tuple(p): body["tokens"]
+                                for p, (_, body, _) in zip(prompts[r], out)})
+        launches = _launch_counts()
+        batches, params = core_api.get(handle.options("recorded").remote(),
+                                       timeout=60)
+        serve.shutdown()
+        live = [p for p in http_proxy._live_proxies if not p.closed]
+        replicas = [st for st in core_api._runtime._actors.values()
+                    if isinstance(st.instance, Replica)]
+        check(not live and replicas and all(st.dead for st in replicas),
+              f"after serve.shutdown(): {len(live)} proxies open, "
+              f"{sum(not st.dead for st in replicas)} replicas alive")
+        sizes = [len(b) for b in batches]
+        check(launches == (cfg.n_layers * len(batches), 0, 0, 0),
+              f"http-serve: kernels launched {launches} times (fwd, dkv, "
+              f"dq, delta) for {len(batches)} generate calls, want "
+              f"({cfg.n_layers * len(batches)}, 0, 0, 0)")
+        seen = [tuple(row) for b in batches for row in b.tolist()]
+        check(sorted(seen) == sorted(answers) and len(seen) == len(answers)
+              == HTTP_ROUNDS * HTTP_CLIENTS,
+              "http-serve: the batches do not hold each prompt once")
+        # each answer against a direct generate of the batch it rode in
+        mismatched = 0
+        for b in batches:
+            direct = generate(params, torch.from_numpy(b), cfg,
+                              max_new_tokens=new).tolist()
+            mismatched += sum(answers[tuple(row)] != want
+                              for row, want in zip(b.tolist(), direct))
+        check(mismatched == 0,
+              f"http-serve: {mismatched} answers differ from a direct "
+              f"generate of their batch")
+        del params, batches
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    torch.cuda.empty_cache()
+    check(not _runtime_threads(), "http-serve: runtime threads left")
+    timed = (HTTP_ROUNDS - 1) * HTTP_CLIENTS
+    rps = timed / timed_s
+    tokens_per_s = rps * new
+    p50, p99 = np.percentile(latencies, [50, 99]).tolist()
+    print(f"[http-serve] flagship bf16 over HTTP (serve.run, @serve.batch "
+          f"max 8, window {HTTP_BATCH_WAIT_S} s): {HTTP_CLIENTS} clients x "
+          f"{HTTP_ROUNDS} rounds (1 warm), all 200; {len(sizes)} generate "
+          f"calls, batch sizes {sizes}; flash launches {launches[0]} = "
+          f"{cfg.n_layers} x {len(sizes)}; every answer equals a direct "
+          f"generate of its batch", flush=True)
+    print(f"[http-serve] timed rounds: {rps:.3f} requests/s, "
+          f"{tokens_per_s:.1f} generated tokens/s, latency p50 "
+          f"{p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; phase 3's direct "
+          f"generate {direct_tokens_per_s:.1f} tokens/s, ratio "
+          f"{tokens_per_s / direct_tokens_per_s:.4f} on {card}", flush=True)
+    return dict(launches=launches, batch_sizes=sizes,
+                requests_per_s=rps, tokens_per_s=tokens_per_s,
+                p50_ms=p50 * 1e3, p99_ms=p99 * 1e3,
+                direct_tokens_per_s=direct_tokens_per_s,
+                ratio_to_direct=tokens_per_s / direct_tokens_per_s)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -3376,6 +3546,10 @@ def main() -> int:
                  "ulysses_n1": par["attention"]["ulysses"],
                  "pipeline_n1": par["pipeline"],
                  "ppo_mesh": par["ppo"]})
+    t0 = time.perf_counter()
+    runs["http-serve"] = phase_http_serve(card, runs["serve"]["tokens_per_s"])
+    print(f"[phase] http serve: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

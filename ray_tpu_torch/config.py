@@ -90,3 +90,26 @@ define("array_zero_copy_enabled", bool, True,
 define("worker_pool_max_size", int, 8,
        "Max concurrent leased workers per node (the in-process runtime's "
        "task thread pool).")
+
+# Serve ingress (serve/http_proxy.py admission control + serve/api.py
+# handle routing + serve/controller.py drain)
+define("serve_max_queued_requests", int, 200,
+       "Per-deployment proxy-side queue budget: requests waiting for an "
+       "ongoing slot past this depth are shed with 503 + Retry-After "
+       "instead of queueing unboundedly (parity: serve "
+       "max_queued_requests proxy backpressure).")
+define("serve_max_ongoing_requests", int, 8,
+       "Per-replica in-flight request cap (parity: serve "
+       "max_ongoing_requests). The handle routes only to replicas under "
+       "the cap and the proxy bounds dispatched work to "
+       "replicas x cap; deployments override with "
+       "@serve.deployment(max_ongoing_requests=N).")
+define("serve_request_timeout_s", float, 30.0,
+       "End-to-end deadline for one ingress request (queue wait + replica "
+       "call). Expiry answers 504 and cancels the in-flight call instead "
+       "of leaking it (parity: RAY_SERVE_REQUEST_PROCESSING_TIMEOUT_S).")
+define("serve_drain_timeout_s", float, 10.0,
+       "Graceful-drain window on scale-down/delete: a DRAINING replica "
+       "leaves the routing table immediately (generation bump) and gets "
+       "this long to finish in-flight requests before the kill (parity: "
+       "serve graceful_shutdown_timeout_s).")

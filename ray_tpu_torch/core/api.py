@@ -15,13 +15,14 @@ from __future__ import annotations
 import asyncio
 import inspect
 import threading
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 from ray_tpu_torch import config
 from ray_tpu_torch.core.actor import ActorClass, ActorHandle
 from ray_tpu_torch.core.actor import method as method  # re-export
 from ray_tpu_torch.core.options import make_actor_options, make_task_options
-from ray_tpu_torch.core.refs import ObjectRef
+from ray_tpu_torch.core.refs import ChannelResolvedRef, ObjectRef
 from ray_tpu_torch.core.remote_function import RemoteFunction
 
 _runtime = None
@@ -115,7 +116,25 @@ def get(refs: Union[ObjectRef, Sequence[ObjectRef]],
     for r in ref_list:
         if not isinstance(r, ObjectRef):
             raise TypeError(f"get() expects ObjectRef(s), got {type(r).__name__}")
-    values = _global_runtime().get(ref_list, timeout=timeout)
+    if not any(isinstance(r, ChannelResolvedRef) for r in ref_list):
+        values = _global_runtime().get(ref_list, timeout=timeout)
+        return values[0] if single else values
+    # Mixed/channel-resolved path: channel refs (serve's call refs) resolve
+    # through their own subsystem; plain ones still go through the runtime
+    # in one batch, under the same overall deadline.
+    deadline = None if timeout is None else time.monotonic() + timeout
+
+    def _left():
+        if deadline is None:
+            return None
+        return max(0.0, deadline - time.monotonic())
+
+    plain = [r for r in ref_list if not isinstance(r, ChannelResolvedRef)]
+    plain_vals = iter(_global_runtime().get(plain, timeout=timeout)
+                      if plain else [])
+    values = [r._resolve(timeout=_left())
+              if isinstance(r, ChannelResolvedRef) else next(plain_vals)
+              for r in ref_list]
     return values[0] if single else values
 
 
@@ -127,7 +146,28 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
         raise ValueError(f"num_returns={num_returns} > len(refs)={len(refs)}")
     if len(set(refs)) != len(refs):
         raise ValueError("wait() requires a list of unique ObjectRefs.")
-    return _global_runtime().wait(refs, num_returns, timeout)
+    if not any(isinstance(r, ChannelResolvedRef) for r in refs):
+        return _global_runtime().wait(refs, num_returns, timeout)
+    # Channel-resolved refs poll their subsystem (_is_ready); plain refs
+    # keep the runtime's batched readiness check. Order within each output
+    # list follows the input order (wait() contract).
+    deadline = None if timeout is None else time.monotonic() + timeout
+    rt = _global_runtime()
+    plain = [r for r in refs if not isinstance(r, ChannelResolvedRef)]
+    while True:
+        ready_set = set()
+        if plain:
+            done, _ = rt.wait(plain, len(plain), 0.0)
+            ready_set.update(done)
+        for r in refs:
+            if isinstance(r, ChannelResolvedRef) and r._is_ready():
+                ready_set.add(r)
+        if len(ready_set) >= num_returns or (
+                deadline is not None and time.monotonic() >= deadline):
+            ready = [r for r in refs if r in ready_set][:num_returns]
+            chosen = set(ready)
+            return ready, [r for r in refs if r not in chosen]
+        time.sleep(0.001)   # the runtime's own wait polls at this cadence
 
 
 async def _async_get(ref: ObjectRef):

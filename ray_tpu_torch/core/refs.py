@@ -3,8 +3,9 @@
 
 Role parity: python/ray/includes/object_ref.pxi:38 — a typed handle to an
 object; awaiting/getting goes through the process's runtime. The JAX
-package's reference-count hooks and channel-resolved refs belong to its
-cluster runtime and compiled graphs, which the port does not have yet.
+package's reference-count hooks belong to its cluster runtime, which the
+port does not have yet. ``ChannelResolvedRef`` is copied: serve's call refs
+(``serve/api.py:ServeCallRef``) resolve through it.
 """
 
 from __future__ import annotations
@@ -56,3 +57,28 @@ class ObjectRef:
         """A concurrent.futures.Future resolving to the object's value."""
         from ray_tpu_torch.core.api import _ref_future
         return _ref_future(self)
+
+
+class ChannelResolvedRef(ObjectRef):
+    """An ObjectRef whose value arrives through a subsystem resolver instead
+    of the object table: serve's call refs, which retry a failed call on
+    another replica (``serve/api.py:ServeCallRef``). get()/wait() dispatch
+    to ``_resolve``/``_is_ready`` (core/api.py), so these refs compose with
+    plain ones in the public API.
+    """
+
+    __slots__ = ()
+
+    def _resolve(self, timeout: Optional[float] = None):
+        """Block until the value is available; return it (or raise the
+        propagated error)."""
+        raise NotImplementedError
+
+    def _is_ready(self) -> bool:
+        """Non-blocking readiness probe for wait()."""
+        raise NotImplementedError
+
+    def __reduce__(self):
+        raise TypeError(
+            "channel-resolved refs cannot be serialized; get() the value "
+            "and pass that instead")

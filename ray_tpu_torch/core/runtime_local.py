@@ -162,6 +162,12 @@ class LocalRuntime:
             out.append(value)
         return out
 
+    def on_resolved(self, ref: ObjectRef, callback) -> None:
+        """Run ``callback()`` once ``ref``'s object is stored, value or
+        error: in the thread that stores it, or at once if it is stored
+        already. No thread waits for it."""
+        self._future_for(ref.id).add_done_callback(lambda _fut: callback())
+
     def wait(self, refs: List[ObjectRef], num_returns: int,
              timeout: Optional[float]) -> Tuple[List[ObjectRef], List[ObjectRef]]:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -283,6 +289,12 @@ class LocalRuntime:
         st = self._await_actor_state(actor_id)
         return ActorHandle(actor_id, type(st.instance).__name__, st.methods,
                            st.is_async)
+
+    def actor_dead(self, actor_id: ActorID) -> bool:
+        """Whether the actor was killed, or is unknown to this runtime (the
+        in-process counterpart of the conductor's DEAD actor state)."""
+        state = self._actors.get(actor_id)
+        return state is None or state.dead
 
     def submit_actor_task(self, handle: ActorHandle, method_name: str, args,
                           kwargs, opts: TaskOptions) -> List[ObjectRef]:

@@ -108,8 +108,31 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/parallel/collectives.py",
                    "ray_tpu_torch/ops/ring_attention.py",
                    "ray_tpu_torch/ops/ulysses.py",
-                   "ray_tpu_torch/ops/pipeline.py", "chip_smoke.py"):
+                   "ray_tpu_torch/ops/pipeline.py",
+                   "ray_tpu_torch/serve/__init__.py",
+                   "ray_tpu_torch/serve/api.py",
+                   "ray_tpu_torch/serve/controller.py",
+                   "ray_tpu_torch/serve/http_proxy.py", "chip_smoke.py"):
         assert module in names
+
+
+def test_importing_serve_loads_no_jax_ray_tpu_or_cloudpickle(monkeypatch):
+    """The import walk reads the sources; this imports ``serve`` afresh and
+    looks at what the import itself loaded."""
+    import importlib
+    import sys
+    for name in [m for m in sys.modules if m == "ray_tpu_torch.serve"
+                 or m.startswith("ray_tpu_torch.serve.")]:
+        monkeypatch.delitem(sys.modules, name)
+    monkeypatch.delattr(ray_tpu_torch, "serve", raising=False)
+    before = set(sys.modules)
+    importlib.import_module("ray_tpu_torch.serve")
+    new = set(sys.modules) - before
+    assert {"ray_tpu_torch.serve.api", "ray_tpu_torch.serve.controller",
+            "ray_tpu_torch.serve.http_proxy"} <= new
+    bad = [m for m in new if m.split(".")[0] in
+           ("jax", "jaxlib", "ray_tpu", "cloudpickle")]
+    assert not bad, bad
 
 
 def _no_cuda(monkeypatch):
@@ -207,6 +230,9 @@ ENTRY_POINTS = {
     # Not here: rl.algorithms.Bandit. Like the JAX package's, it skips the
     # base init and runs on the host only: it takes no device, so it has
     # nothing to refuse without a card (ROADMAP.md C).
+    # Not here: serve (deployments, handles, the HTTP proxy). Serve holds no
+    # tensor and takes no device; a deployment's model takes its own, and
+    # its entry points are the rows above.
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 _QKV = [torch.zeros(1, 4, 2, 8)] * 3
