@@ -209,9 +209,38 @@ Phases, each of which fails the run (non-zero exit) on any error:
    of the timed rounds, beside phase 3's direct ``generate`` tokens/s from
    this run and their ratio (the serve front's cost).
 
+25. The cluster runtime (``ray_tpu_torch.cluster``, worker processes, the
+   shm object store): ``cluster_utils.Cluster(initialize_head=True,
+   head_node_args={"num_cpus": 4, "object_store_bytes": ...})``, then
+   ``ray_tpu_torch.init(address=c.address)``. ``cluster_resources()`` must
+   count the card as ``"GPU": 1`` (``gpu/topology.py``); ``df -B1
+   /dev/shm`` and the store's size are printed, and the store and the
+   table below are sized to fit (the phase fails, with both numbers, if
+   1024 rows of the table cannot). A plain task must see
+   ``CUDA_VISIBLE_DEVICES=""`` and no card. An actor with ``num_gpus=1``
+   (``FlagshipWorker``, a fresh worker process that sees one card) draws
+   the flagship on the card from seed 0 (phase 3's configuration, bf16,
+   full width and depth), checks the flash forward against its plain
+   version in its process (phase 2's bf16 tolerance), and runs
+   ``generate`` on phase 3's 8 seeded prompts of 128 tokens for 256 greedy
+   tokens: its tokens (through the store) must equal the driver's direct
+   ``generate`` of the same weights and prompts in this run, with 10
+   forward launches and no backward one in the worker; its tokens/s
+   (measured in the worker) is printed beside the driver's and their
+   ratio. The driver ``put`` s the flagship's embedding table as f32 numpy
+   (32768 x 2048, 268 MB); the actor gets it, moves it to the card and
+   returns it doubled; the result must be bitwise 2x the table, with MB/s
+   each way. Then the actor is killed, ``shutdown()`` and
+   ``Cluster.shutdown()``: no process of the session, no store segment of
+   the port's prefix and no worker's context on the card may be left:
+   ``nvidia-smi --query-compute-apps`` must list more contexts while the
+   GPU actor lives than before the phase, and no more than before once
+   the cluster is down (it counts them: in a container its pids are the
+   host's).
+
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-24 print their seconds.
+the PPO learner in phase 23. Phases 17-25 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -3478,6 +3507,306 @@ def phase_http_serve(card, direct_tokens_per_s):
                 ratio_to_direct=tokens_per_s / direct_tokens_per_s)
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the cluster runtime, the flagship in a GPU worker process
+# ---------------------------------------------------------------------------
+
+CLUSTER_BATCH, CLUSTER_PROMPT, CLUSTER_NEW = 8, 128, 256
+# The store holds the embedding table on its way in and its double on its
+# way out, with this much room left for everything else.
+STORE_SLACK = 64 << 20
+STORE_MAX = 1 << 30
+
+
+def _visible_card():
+    """A plain task's view of the card (it leases no GPU)."""
+    import os
+
+    import torch as torch_
+    return (os.environ.get("CUDA_VISIBLE_DEVICES"),
+            torch_.cuda.is_available(), os.getpid())
+
+
+class FlagshipWorker:
+    """The flagship in a worker process that holds one GPU: phase 3's
+    configuration, its weights drawn on the card from ``seed`` as the
+    driver draws them."""
+
+    def __init__(self, seed):
+        import os
+
+        from ray_tpu_torch.models import transformer_init
+        self.cfg = flagship_cfg()
+        self.params = transformer_init(
+            torch.Generator(device="cuda").manual_seed(seed), self.cfg)
+        self.env = (os.environ.get("CUDA_VISIBLE_DEVICES"),
+                    torch.cuda.is_available(), torch.cuda.device_count(),
+                    os.getpid())
+
+    def card(self):
+        return self.env + (torch.cuda.get_device_name(0),)
+
+    def kernel_check(self):
+        """The flash forward against its plain version in this process, at
+        the serve prefill shape, bf16: (max_abs_err of O, of LSE)."""
+        from ray_tpu_torch.ops import flash
+        gen = torch.Generator(device="cuda").manual_seed(25)
+        q, k, v = _case_inputs("serve_prefill", CASES[0][1], gen)(
+            torch.bfloat16)
+        out, lse = flash.flash_fwd(q, k, v, causal=True)
+        pout, plse = flash.flash_fwd_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        return ((out.float() - pout.float()).abs().max().item(),
+                (lse - plse).abs().max().item())
+
+    def serve(self, prompt, new):
+        """One warm-up, then the counted, timed ``generate``: (tokens,
+        launches, tokens/s inside this process, prefill logits)."""
+        from ray_tpu_torch.models import generate
+        prompt = torch.from_numpy(np.array(prompt)).cuda()
+        generate(self.params, prompt, self.cfg, max_new_tokens=4)
+        torch.cuda.synchronize()
+        _reset_launch_counts()
+        t0 = time.perf_counter()
+        tokens = generate(self.params, prompt, self.cfg, max_new_tokens=new)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        logits = _prefill_logits(self.params, prompt, self.cfg,
+                                 prompt.shape[1] + new)
+        return (tokens.cpu().numpy(), launches,
+                prompt.shape[0] * new / seconds,
+                logits[:, -1].float().cpu().numpy())
+
+    def double(self, boxed):
+        """The array behind ``boxed[0]`` (a ref) from the store to the
+        card, doubled, and back to the host: (array, seconds of the get and
+        the copy to the card, seconds of the doubling and the copy back)."""
+        import warnings
+
+        import ray_tpu_torch as rt
+        t0 = time.perf_counter()
+        host = rt.get(boxed[0], timeout=120)
+        with warnings.catch_warnings():   # a read-only view of the store,
+            warnings.simplefilter("ignore")   # only read by the copy
+            card = torch.from_numpy(np.asarray(host)).cuda()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = (card * 2).cpu().numpy()
+        t2 = time.perf_counter()
+        del host, card
+        return out, t1 - t0, t2 - t1
+
+
+def _shm_free():
+    out = subprocess.run(["df", "-B1", "/dev/shm"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout
+    print("[cluster] df -B1 /dev/shm:\n" + out.rstrip(), flush=True)
+    return int(out.splitlines()[-1].split()[3])
+
+
+def _session_processes():
+    """Live (not zombie) processes of the port's cluster on this host."""
+    import os
+    marks = ("ray_tpu_torch.cluster.worker_main",
+             "ray_tpu_torch.cluster.worker_zygote", "shmstored")
+    found = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+            with open(f"/proc/{pid}/stat") as f:
+                state = f.read().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state not in "ZX" and any(m in cmd for m in marks):
+            found.append((int(pid), cmd[:120]))
+    return found
+
+
+def _compute_apps():
+    """The card's compute contexts as ``nvidia-smi`` lists them, one
+    ``"pid, used_memory"`` string each. In a container the pids are the
+    host's, so callers compare how many there are, not which."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def phase_cluster(card, direct_tokens_per_s):
+    """Phase 25: a port ``Cluster`` whose head counts the card as
+    ``"GPU": 1``; a plain task that sees no card; the flagship generating
+    in a ``num_gpus=1`` actor's worker process, held to the driver's direct
+    ``generate``; the embedding table through the shm store and back."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.models import generate, transformer_init
+    t_phase = time.perf_counter()
+    cfg, batch, plen, new = (flagship_cfg(), CLUSTER_BATCH, CLUSTER_PROMPT,
+                             CLUSTER_NEW)
+    # the driver's own flagship, phase 3's seed and prompts
+    params = transformer_init(torch.Generator(device="cuda").manual_seed(0),
+                              cfg)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (batch, plen))
+    embed = params["embed"].float().cpu().numpy()
+    rows = embed.shape[0]
+    free = _shm_free()
+    store_bytes = min(STORE_MAX, int(free * 0.8))
+    need = 2 * embed.nbytes + STORE_SLACK
+    if store_bytes < need:
+        rows = (store_bytes - STORE_SLACK) // (2 * embed.shape[1] * 4)
+        check(rows >= 1024,
+              f"cluster: /dev/shm has {free} bytes free; a store of "
+              f"{store_bytes} bytes cannot hold the embedding table twice "
+              f"({need} bytes), nor 1024 of its rows")
+        embed = np.ascontiguousarray(embed[:rows])
+    print(f"[cluster] /dev/shm free {free} bytes; head store "
+          f"{store_bytes} bytes; embedding table through it "
+          f"{embed.shape[0]} x {embed.shape[1]} f32 = {embed.nbytes} bytes"
+          f"{'' if rows == cfg.vocab_size else ' (rows cut to fit /dev/shm)'}",
+          flush=True)
+    apps_before = _compute_apps()
+
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 4,
+                                "object_store_bytes": store_bytes})
+    prefixes = [n.store_prefix for n in c.nodes]
+    worker_pids = []
+    try:
+        rt.init(address=c.address)
+        try:
+            res = rt.cluster_resources()
+            print(f"[cluster] cluster_resources() {res}", flush=True)
+            check(res.get("GPU") == 1.0,
+                  f"cluster: the head counts {res.get('GPU')} GPUs, want 1")
+            visible, avail, pid = rt.get(rt.remote(_visible_card).remote(),
+                                         timeout=300)
+            worker_pids.append(pid)
+            print(f"[cluster] plain task: CUDA_VISIBLE_DEVICES={visible!r} "
+                  f"torch.cuda.is_available()={avail}", flush=True)
+            check(visible == "" and avail is False,
+                  "cluster: a task that leased no GPU sees the card")
+
+            actor = rt.remote(num_gpus=1)(FlagshipWorker).remote(0)
+            w_env = rt.get(actor.card.remote(), timeout=600)
+            worker_pids.append(w_env[3])
+            print(f"[cluster] num_gpus=1 actor: CUDA_VISIBLE_DEVICES="
+                  f"{w_env[0]!r} is_available={w_env[1]} device_count="
+                  f"{w_env[2]} card {w_env[4]!r} pid {w_env[3]}", flush=True)
+            check(w_env[:3] == ("0", True, 1),
+                  f"cluster: the GPU actor sees {w_env[:3]}")
+            o_err, l_err = rt.get(actor.kernel_check.remote(), timeout=600)
+            print(f"[cluster] flash_fwd in the worker against its plain "
+                  f"version (serve prefill, bf16): O max_abs_err {o_err:.4e} "
+                  f"(tol {TOL[torch.bfloat16]['out']}), LSE {l_err:.4e} "
+                  f"(tol {TOL[torch.bfloat16]['lse']})", flush=True)
+            check(o_err <= TOL[torch.bfloat16]["out"]
+                  and l_err <= TOL[torch.bfloat16]["lse"],
+                  "cluster: the flash forward disagrees in the worker")
+            tokens, launches, w_tps, w_logits = rt.get(
+                actor.serve.remote(prompt, new), timeout=900)
+
+            # the same generate in the driver
+            gp = torch.from_numpy(prompt).cuda()
+            generate(params, gp, cfg, max_new_tokens=4)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = generate(params, gp, cfg, max_new_tokens=new)
+            torch.cuda.synchronize()
+            d_tps = batch * new / (time.perf_counter() - t0)
+            want_logits = _prefill_logits(params, gp, cfg, plen + new)[
+                :, -1].float().cpu().numpy()
+            check(launches == (cfg.n_layers, 0, 0, 0),
+                  f"cluster: kernels launched {launches} times (fwd, dkv, "
+                  f"dq, delta) in the worker's generate, want "
+                  f"({cfg.n_layers}, 0, 0, 0)")
+            same = np.array_equal(tokens, want.cpu().numpy())
+            rows_diff = int((tokens != want.cpu().numpy()).any(1).sum())
+            logit_diff = float(np.abs(w_logits - want_logits).max())
+            print(f"[cluster] worker generate {batch}x{new}: tokens equal "
+                  f"the driver's: {same} ({rows_diff} rows differ); "
+                  f"last-position prefill logits max_abs_diff "
+                  f"{logit_diff:.4e} (tol {LOGIT_TOL_BF16}); flash launches "
+                  f"{launches}", flush=True)
+            check(same, "cluster: the worker's tokens differ from the "
+                  "driver's direct generate of the same weights")
+            print(f"[cluster] tokens/s: worker {w_tps:.1f}, driver's direct "
+                  f"generate {d_tps:.1f} (phase 3: "
+                  f"{direct_tokens_per_s:.1f}), worker/driver "
+                  f"{w_tps / d_tps:.4f} on {card}", flush=True)
+
+            t0 = time.perf_counter()
+            ref = rt.put(embed)
+            put_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back, in_s, twice_s = rt.get(actor.double.remote([ref]),
+                                         timeout=600)
+            call_s = time.perf_counter() - t0
+            exact = bool(np.array_equal(np.asarray(back), embed * 2))
+            back_s = call_s - in_s
+            mb = embed.nbytes / 1e6
+            print(f"[cluster] object plane: {mb:.1f} MB; to the worker "
+                  f"{mb / (put_s + in_s):.1f} MB/s (put {put_s:.4f} s, get "
+                  f"and copy to the card {in_s:.4f} s); back "
+                  f"{mb / back_s:.1f} MB/s (double, copy to the host, "
+                  f"return and get {back_s:.4f} s, of it on the card and "
+                  f"the copy back {twice_s:.4f} s); doubled bitwise: {exact}"
+                  f" on {card}", flush=True)
+            check(exact, "cluster: the doubled table is not 2x the table")
+            del back, ref
+            apps_during = _compute_apps()
+            print(f"[cluster] card contexts with the GPU actor alive: "
+                  f"{apps_during} (before the phase: {apps_before})",
+                  flush=True)
+            check(len(apps_during) > len(apps_before),
+                  "cluster: nvidia-smi lists no context for the GPU worker, "
+                  "so it cannot show that teardown releases it")
+            rt.kill(actor)
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    deadline = time.monotonic() + 30
+    left = _session_processes()
+    segs = [f for f in os.listdir("/dev/shm")
+            if any(f.startswith(p) for p in prefixes)]
+    while (left or segs) and time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+    apps = _compute_apps()
+    deadline = time.monotonic() + 30
+    while len(apps) > len(apps_before) and time.monotonic() < deadline:
+        time.sleep(0.2)
+        apps = _compute_apps()
+    print(f"[cluster] after shutdown: session processes {left}, segments "
+          f"{segs}, card contexts {apps} (before the phase {apps_before}; "
+          f"workers were pids {worker_pids})", flush=True)
+    check(not left, f"cluster: processes left after shutdown: {left}")
+    check(not segs, f"cluster: store segments left: {segs}")
+    check(len(apps) <= len(apps_before),
+          f"cluster: a worker still holds a context on the card: {apps} "
+          f"(before the phase {apps_before})")
+    del params
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"[cluster] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=launches, worker_tokens_per_s=w_tps,
+                driver_tokens_per_s=d_tps, ratio=w_tps / d_tps,
+                tokens_equal=same, prefill_logit_diff=logit_diff,
+                shm_free=free, store_bytes=store_bytes,
+                table_bytes=embed.nbytes, to_worker_mb_s=mb / (put_s + in_s),
+                back_mb_s=mb / back_s, seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -3550,6 +3879,10 @@ def main() -> int:
     runs["http-serve"] = phase_http_serve(card, runs["serve"]["tokens_per_s"])
     print(f"[phase] http serve: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    runs["cluster-gpu-worker"] = phase_cluster(card,
+                                               runs["serve"]["tokens_per_s"])
+    print(f"[phase] cluster: {time.perf_counter() - t0:.1f} s", flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

@@ -3,11 +3,17 @@ from ``ray_tpu/core/api.py``.
 
 Role parity: python/ray/_private/worker.py (init:1115, get:2405, put, wait)
 and the @ray.remote decorator. The module holds the process-global runtime.
-The port has the in-process runtime only: ``init()`` and
-``init(local_mode=True)`` start it, where the JAX package's ``init()``
-tries its cluster runtime first. An address (``"host:port"``,
-``client://``) raises ``NotImplementedError``: the cluster and client
-runtimes are still to port (ROADMAP.md A.5).
+
+- ``init(address="host:port")`` connects a ``ClusterRuntime`` to a running
+  conductor (a ``cluster_utils.Cluster``, or a head started by
+  ``ClusterRuntime(address=None)``): tasks and actors run in worker
+  processes, objects live in the node's shm store.
+- ``init()`` and ``init(local_mode=True)`` start the in-process runtime,
+  where the JAX package's ``init()`` starts a head: the port's serve and
+  RL drivers rely on that runtime's callables by reference,
+  ``on_resolved`` and ``actor_dead`` (ROADMAP.md C).
+- ``client://`` raises ``NotImplementedError``: the client runtime is
+  still to port (ROADMAP.md A.5).
 """
 
 from __future__ import annotations
@@ -37,12 +43,13 @@ def init(address: Optional[str] = None, *,
          namespace: Optional[str] = None,
          _system_config: Optional[dict] = None,
          ignore_reinit_error: bool = False):
-    """Start this process's runtime.
+    """Start or connect this process's runtime.
 
     - ``address=None``, ``address="local"`` or ``local_mode=True``: the
       in-process thread runtime.
-    - any other address raises ``NotImplementedError``; nothing falls back
-      to the in-process runtime.
+    - ``address="host:port"``: connect to an existing conductor.
+    - ``client://`` raises ``NotImplementedError``. Nothing falls back to
+      the in-process runtime: a cluster that cannot be reached raises.
     """
     global _runtime
     with _runtime_lock:
@@ -51,14 +58,20 @@ def init(address: Optional[str] = None, *,
                 return _runtime
             raise RuntimeError("ray_tpu_torch.init() called twice; pass "
                                "ignore_reinit_error=True to ignore.")
-        if address not in (None, "local") and not local_mode:
+        if (address or "").startswith("client://") and not local_mode:
             raise NotImplementedError(
-                f"ray_tpu_torch.init(address={address!r}): the port has the "
-                "in-process runtime only; the cluster and client runtimes "
-                "are still to port (ROADMAP.md A.5). Call init() or "
-                "init(local_mode=True).")
+                f"ray_tpu_torch.init(address={address!r}): the client "
+                "runtime is still to port (ROADMAP.md A.5). Connect to the "
+                "conductor with init(address='host:port').")
         if _system_config:
             config.set_system_config(_system_config)
+        if address not in (None, "local") and not local_mode:
+            from ray_tpu_torch.core.runtime_cluster import ClusterRuntime
+            _runtime = ClusterRuntime(address=address, num_cpus=num_cpus,
+                                      num_gpus=num_gpus,
+                                      resources=resources,
+                                      namespace=namespace)
+            return _runtime
         from ray_tpu_torch.core.runtime_local import LocalRuntime
         _runtime = LocalRuntime(num_cpus=num_cpus, num_gpus=num_gpus,
                                 resources=resources)

@@ -105,3 +105,24 @@ class JobID(BaseID):
 
 class PlacementGroupID(BaseID):
     SIZE = 12
+
+
+_sk_cache: dict = {}
+
+
+def store_key(oid_binary: bytes) -> bytes:
+    """16-byte shm-store / directory key for a 20-byte ObjectID.
+
+    Every subsystem that names an object outside this process (shm store,
+    conductor object directory, reference ledger) uses this one mapping.
+    Memoized: hot paths map the same oid several times per task (pending
+    marks, seeds, ref events); the cache is bounded and simply cleared
+    when full (a pure function needs no eviction order).
+    """
+    k = _sk_cache.get(oid_binary)
+    if k is None:
+        if len(_sk_cache) >= 8192:
+            _sk_cache.clear()
+        k = _sk_cache[oid_binary] = hashlib.blake2b(
+            oid_binary, digest_size=16).digest()
+    return k

@@ -2,9 +2,11 @@
 ``ray_tpu/core/refs.py``.
 
 Role parity: python/ray/includes/object_ref.pxi:38 — a typed handle to an
-object; awaiting/getting goes through the process's runtime. The JAX
-package's reference-count hooks belong to its cluster runtime, which the
-port does not have yet. ``ChannelResolvedRef`` is copied: serve's call refs
+object; awaiting/getting goes through the process's runtime. Under the
+cluster runtime refs are owner-tracked: the process that created the
+object (by put or by task return) owns it and its reference count
+(reference_count.h:61), through the ``_tracker`` hooks below.
+``ChannelResolvedRef`` is copied: serve's call refs
 (``serve/api.py:ServeCallRef``) resolve through it.
 """
 
@@ -14,14 +16,35 @@ from typing import Optional
 
 from ray_tpu_torch.core.ids import ObjectID
 
+# Installed by ClusterRuntime._finish_init; None under the in-process
+# runtime / no runtime. Every ObjectRef created (including by
+# deserialization in a borrowing worker) registers here, and deregisters
+# on GC — the distributed refcount (reference_count.h:61) is driven
+# entirely by these two hooks plus the submitter's explicit in-flight-arg
+# pins (core/refcount.py).
+_tracker = None
 
 class ObjectRef:
-    __slots__ = ("_id", "_owner", "__weakref__")
+    __slots__ = ("_id", "_owner", "_tracked", "__weakref__")
 
     def __init__(self, object_id: ObjectID, owner: Optional[str] = None):
         self._id = object_id
-        # Owner address string: the runtime that created the object.
+        # Owner address string ("host:port" of the owning worker/driver) —
+        # lets any holder resolve the object's location via the owner.
         self._owner = owner
+        t = _tracker
+        self._tracked = t is not None
+        if t is not None:
+            t.handle_created(object_id.binary())
+
+    def __del__(self):
+        if self._tracked:
+            t = _tracker
+            if t is not None:
+                try:
+                    t.handle_dropped(self._id.binary())
+                except Exception:
+                    pass  # interpreter teardown
 
     @property
     def id(self) -> ObjectID:
@@ -68,6 +91,13 @@ class ChannelResolvedRef(ObjectRef):
     """
 
     __slots__ = ()
+
+    def __init__(self, object_id: ObjectID):
+        # Deliberately skips the tracker hooks: a value delivered by its
+        # subsystem has no store entry for the conductor ledger to count.
+        self._id = object_id
+        self._owner = None
+        self._tracked = False
 
     def _resolve(self, timeout: Optional[float] = None):
         """Block until the value is available; return it (or raise the

@@ -22,27 +22,40 @@ Where the port differs from the JAX module:
 - The pickler is the stdlib ``pickle.Pickler`` (protocol 5, the same
   ``persistent_id`` and ``reducer_override`` hooks), not cloudpickle, which
   the port does not depend on. Functions and classes pickle by import path
-  only: a lambda or a function defined inside another does not pickle. The
-  in-process runtime holds callables by reference and never pickles them;
-  shipping code to other processes waits for the cluster runtime.
+  only, so the process that loads them must be able to import their
+  module (cluster workers start with the driver's ``sys.path``). A function
+  or class defined in the driver's ``__main__`` pickles as (path of the
+  main file, qualname): a worker imports that file under the name
+  ``__rt_main__`` (the ``if __name__ == "__main__"`` guard keeps its body
+  from running), as ``multiprocessing``'s spawn imports it as
+  ``__mp_main__``, and the driver maps it back to its own ``__main__``. A
+  lambda, a closure or a function defined inside another raises
+  ``TypeError`` naming it ("define it at module level"). The in-process
+  runtime holds callables by reference and never pickles them.
 - The RTAR array path knows torch tensors, where the JAX module knows
   ``jax.Array``: a top-level CPU or CUDA tensor whose dtype numpy has is
   exported through ``.detach().cpu().numpy()``, sets flag bit 0 ("a
   framework array") and records its device in the header. It comes back as
   a read-only host numpy view, as a ``jax.Array`` does in the JAX package.
-  A tensor whose dtype numpy lacks (bfloat16) takes the classic pickle path
-  and comes back as a tensor on its device; so do tensors nested in other
-  values (torch pickles them itself).
-- No shared-memory pin tracking and no fault-injection hooks: both belong
-  to the JAX package's cluster runtime.
+  A tensor whose dtype numpy lacks (bfloat16), and every tensor nested in
+  another value, takes the pickle path. A CUDA tensor is copied to the host
+  before it is pickled, so any reader can load it, card or not: it comes
+  back as a CPU tensor of its dtype (a bf16 tensor as a bf16 CPU tensor,
+  where the JAX package returns an ``ml_dtypes`` bf16 numpy array, which
+  numpy alone lacks).
 """
 
 from __future__ import annotations
 
 import io
+import mmap
+import os
 import pickle
 import struct
 import sys
+import threading
+import types
+import weakref
 from typing import Any, List, Optional, Tuple
 
 from ray_tpu_torch import config
@@ -80,7 +93,106 @@ class _Pickler(pickle.Pickler):
     def reducer_override(self, obj):
         if isinstance(obj, ObjectRef):
             self.contained_refs.append(obj)
+            return NotImplemented
+        if isinstance(obj, (types.FunctionType, type)):
+            return _reduce_by_path(obj)
+        torch = sys.modules.get("torch")
+        if (torch is not None and isinstance(obj, torch.Tensor)
+                and obj.device.type != "cpu"):
+            # Any reader must be able to load it, with or without a card.
+            return (_restore_tensor, (obj.detach().cpu(),))
         return NotImplemented
+
+
+def _restore_tensor(t):
+    return t
+
+
+# Name under which a worker imports the driver's main file (the role of
+# multiprocessing's ``__mp_main__``).
+_MAIN_ALIAS = "__rt_main__"
+
+
+def _reduce_by_path(obj):
+    """Reduce a function or class to (module, qualname), or raise the
+    by-reference rule's TypeError. A module attribute that is the
+    ``@remote`` wrapper of ``obj`` resolves to ``obj``."""
+    module = getattr(obj, "__module__", None) or ""
+    qualname = getattr(obj, "__qualname__", "") or ""
+    if "<lambda>" in qualname or "<locals>" in qualname:
+        raise TypeError(
+            f"cannot ship {module}.{qualname} to another process: the port "
+            "pickles functions and classes by import path (it has no "
+            "cloudpickle), so a lambda, a closure or a function or class "
+            "defined inside another cannot be sent; define it at module "
+            "level")
+    if module in ("__main__", _MAIN_ALIAS):
+        path = getattr(sys.modules.get(module), "__file__", None)
+        if not path:
+            raise TypeError(
+                f"cannot ship {module}.{qualname} to another process: it "
+                "was defined in an interactive __main__ with no file; "
+                "define it in a module")
+        return (_main_global, (os.path.realpath(path), qualname))
+    mod = sys.modules.get(module)
+    if mod is None:
+        return NotImplemented
+    try:
+        named = _getattr_path(mod, qualname)
+    except AttributeError:
+        named = None
+    if named is obj:
+        return NotImplemented   # the stdlib's own global lookup
+    if _unwrap(named) is not obj:
+        raise TypeError(
+            f"cannot ship {module}.{qualname} to another process by "
+            "import path: that name does not lead back to it; define it "
+            "at module level under its own name")
+    return (_import_global, (module, qualname))
+
+
+def _unwrap(obj):
+    """The function or class behind an ``@remote`` wrapper."""
+    from ray_tpu_torch.core.actor import ActorClass
+    from ray_tpu_torch.core.remote_function import RemoteFunction
+    if isinstance(obj, RemoteFunction):
+        return obj._fn
+    if isinstance(obj, ActorClass):
+        return obj._cls
+    return obj
+
+
+def _import_global(module: str, qualname: str):
+    import importlib
+    return _unwrap(_getattr_path(importlib.import_module(module), qualname))
+
+
+def _getattr_path(obj, qualname: str):
+    for part in qualname.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _main_global(path: str, qualname: str):
+    """Inverse of ``_reduce_by_path`` for the driver's ``__main__``: the
+    driver's own module where this process runs that file as its main,
+    else the file imported once under ``__rt_main__``."""
+    main = sys.modules.get("__main__")
+    main_file = getattr(main, "__file__", None)
+    if main_file and os.path.realpath(main_file) == path:
+        return _unwrap(_getattr_path(main, qualname))
+    mod = sys.modules.get(_MAIN_ALIAS)
+    if mod is None or getattr(mod, "__file__", None) != path:
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(_MAIN_ALIAS, path)
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[_MAIN_ALIAS] = mod
+        try:
+            spec.loader.exec_module(mod)
+        except BaseException:
+            sys.modules.pop(_MAIN_ALIAS, None)
+            raise
+    return _unwrap(_getattr_path(mod, qualname))
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +204,13 @@ class _Pickler(pickle.Pickler):
 _zc_gen: Optional[int] = None
 _zc_v = True
 
+# Live read-only array views whose base is a pinned shm mapping: each
+# deserialized array registers a finalizer on the mmap, so a hygiene gate
+# (and the rt_array_pins_live gauge) can assert no test leaks a pin past
+# its own teardown.
+_pin_lock = threading.Lock()
+_live_array_pins = 0
+
 
 def _zero_copy_enabled() -> bool:
     """Generation-cached array_zero_copy_enabled read (serialize sits on
@@ -101,6 +220,28 @@ def _zero_copy_enabled() -> bool:
         _zc_v = bool(config.get("array_zero_copy_enabled"))
         _zc_gen = config.generation
     return _zc_v
+
+
+def _untrack_pin() -> None:
+    global _live_array_pins
+    with _pin_lock:
+        _live_array_pins -= 1
+
+
+def _track_pin(base) -> None:
+    global _live_array_pins
+    try:
+        weakref.finalize(base, _untrack_pin)
+    except TypeError:
+        return  # bytes-backed view: no store pin behind it
+    with _pin_lock:
+        _live_array_pins += 1
+
+
+def live_array_pins() -> int:
+    """Read-only array views still holding a shm pin (hygiene gate)."""
+    with _pin_lock:
+        return _live_array_pins
 
 
 def is_array_blob(buf) -> bool:
@@ -143,6 +284,13 @@ def _export_array(value):
         if torch is None or not isinstance(value, torch.Tensor):
             return None
         was_tensor = True
+    try:
+        from ray_tpu_torch.cluster import fault_plane
+        fault_plane.fire("object.array.export",
+                         kind="torch" if was_tensor else "numpy")
+    except Exception:
+        return None  # injected export failure: classic pickle path
+    if was_tensor:
         device = str(value.device)
         try:
             value = value.detach().cpu().resolve_conj().resolve_neg().numpy()
@@ -216,7 +364,10 @@ def _deserialize_array(m: memoryview):
     try:
         arr.flags.writeable = False
     except ValueError:
-        pass  # already read-only (bytes blob)
+        pass  # already read-only (PROT_READ mapping / bytes blob)
+    base = getattr(m, "obj", None)
+    if isinstance(base, mmap.mmap):
+        _track_pin(base)
     return arr
 
 
@@ -288,6 +439,10 @@ def serialize(value: Any) -> Tuple[bytes, List[ObjectRef]]:
     return b"".join(segments), refs
 
 
+def serialized_size(blob: bytes) -> int:
+    return len(blob)
+
+
 def deserialize(blob) -> Any:
     """Deserialize from a bytes-like (bytes or a memoryview). Buffer-backed
     arrays are reconstructed as zero-copy views over that memory."""
@@ -316,8 +471,43 @@ def deserialize(blob) -> Any:
 
 
 def dumps(value: Any) -> bytes:
-    """Plain pickle (control-plane payloads)."""
-    return pickle.dumps(value, protocol=5)
+    """In-band pickle (control-plane payloads: task specs, functions),
+    through ``_Pickler``'s by-path rule."""
+    bio = io.BytesIO()
+    _Pickler(bio, None).dump(value)
+    return bio.getvalue()
+
+
+def _prims_only_args(value: Any) -> bool:
+    """True iff ``value`` is the submit-path ``(args_list, kwargs_dict)``
+    pair and every element is an exact primitive — such a payload cannot
+    contain an ObjectRef, so the in-band ref-collecting pickler is pure
+    overhead for it."""
+    if type(value) is not tuple or len(value) != 2:
+        return False
+    a, kw = value
+    if type(a) is not list or type(kw) is not dict:
+        return False
+    for v in a:
+        if type(v) not in _PRIM_TYPES:
+            return False
+    for k, v in kw.items():
+        if type(k) is not str or type(v) not in _PRIM_TYPES:
+            return False
+    return True
+
+
+def dumps_with_refs(value: Any) -> Tuple[bytes, List[ObjectRef]]:
+    """In-band pickle that also reports every ObjectRef reachable from
+    ``value`` (at any nesting depth) in ONE pass — the submit path pins
+    these for the duration of the task handoff (reference_count.h:61
+    in-flight argument references)."""
+    if _prims_only_args(value):
+        return pickle.dumps(value, protocol=5), []
+    bio = io.BytesIO()
+    p = _Pickler(bio, None)
+    p.dump(value)
+    return bio.getvalue(), p.contained_refs
 
 
 def loads(blob: bytes) -> Any:

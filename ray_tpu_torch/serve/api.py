@@ -13,8 +13,8 @@ Where the port differs from the JAX module (ROADMAP.md C):
   the replicas by reference (no ``cloudpickle``).
 - ``run(..., compile=True)`` raises ``NotImplementedError``: compiled
   graphs (``dag/``) are ROADMAP.md A.5.
-- No ring events (A.6); plain ``threading.Lock``s for lockcheck's named
-  locks (A.6).
+- No ring events (A.6). The handle's lock is lockcheck's named lock
+  ``serve.handle``, as in the JAX module.
 - ``@serve.batch`` keeps one queue per replica instance (and one for a
   plain function), where the JAX module keeps one per process, which its
   in-process runtime shares between the replicas of a deployment.
@@ -42,6 +42,7 @@ from ray_tpu_torch.core.exceptions import (ActorError, GetTimeoutError,
                                            WorkerCrashedError)
 from ray_tpu_torch.core.refs import ChannelResolvedRef
 from ray_tpu_torch.serve.controller import ReplicaBusyError, ServeController
+from ray_tpu_torch.util import lockcheck
 
 
 def _get_controller(create: bool = True):
@@ -137,7 +138,7 @@ class DeploymentHandle:
         self._generation = -1
         self._max_ongoing = 0
         self._ts = 0.0
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("serve.handle")
         self._inflight: Dict[Any, int] = {}
         # Evicted-replica quarantine: actor_id -> routing generation at
         # eviction time. The controller's table lags a death by up to a

@@ -12,10 +12,12 @@ Where the port differs from the JAX module (ROADMAP.md C):
 - A replica takes the deployment's class or function, its init args and
   each request's args by reference: the in-process runtime pickles
   nothing, so no ``cloudpickle`` blob is made.
-- No fault-plane sites (``cluster/``, ROADMAP.md A.5), no ring events and
-  no occupancy gauge (``util/events.py``, ``util/metrics.py``, A.6), and
-  plain ``threading.Lock``s where the JAX module takes lockcheck's named
-  locks (A.6).
+- No fault-plane sites, ring events or occupancy gauge: the modules
+  came with the cluster runtime (``cluster/fault_plane.py``,
+  ``util/events.py``, ``util/metrics.py``), but serve's replicas are not
+  worker processes yet (ROADMAP.md A.5). The controller's two locks are
+  lockcheck's named locks ``serve.controller`` and ``serve.reconcile``,
+  as in the JAX module.
 - Liveness comes from the runtime's own actor state and load from the
   replicas' ``queue_len``, where the JAX controller reads the conductor's
   actor table and metrics KV.
@@ -36,6 +38,7 @@ from typing import Any, Dict, List, Optional
 from ray_tpu_torch import config
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.core.exceptions import GetTimeoutError
+from ray_tpu_torch.util import lockcheck
 
 
 class ReplicaBusyError(Exception):
@@ -126,10 +129,10 @@ class ServeController:
         # time; ids that have answered >=1 health ping.
         self._replica_started: Dict[Any, float] = {}
         self._replica_ready: set = set()
-        self._lock = threading.Lock()
+        self._lock = lockcheck.named_lock("serve.controller")
         # serializes reconcile passes (deploy() and the loop both enter;
         # the controller actor itself runs with max_concurrency > 1)
-        self._reconcile_lock = threading.Lock()
+        self._reconcile_lock = lockcheck.named_lock("serve.reconcile")
         self._runtime = core_api._global_runtime()
         self._stop = threading.Event()
         self.http_port = http_port

@@ -309,3 +309,111 @@ def test_kernel_source_calls_no_library_attention():
         assert includes <= allowed, name
         for kernel in tpu_kernels:
             assert kernel in src, name
+
+
+_CLUSTER_MODULES = (
+    "ray_tpu_torch/cluster/__init__.py", "ray_tpu_torch/cluster/protocol.py",
+    "ray_tpu_torch/cluster/object_client.py",
+    "ray_tpu_torch/cluster/hygiene.py",
+    "ray_tpu_torch/cluster/memory_monitor.py",
+    "ray_tpu_torch/cluster/persistence.py",
+    "ray_tpu_torch/cluster/fault_plane.py",
+    "ray_tpu_torch/cluster/conductor.py",
+    "ray_tpu_torch/cluster/object_plane.py",
+    "ray_tpu_torch/cluster/push_manager.py",
+    "ray_tpu_torch/cluster/node_daemon.py",
+    "ray_tpu_torch/cluster/worker_main.py",
+    "ray_tpu_torch/cluster/worker_zygote.py",
+    "ray_tpu_torch/cluster/spill.py",
+    "ray_tpu_torch/cluster/cluster_utils.py",
+    "ray_tpu_torch/core/refcount.py", "ray_tpu_torch/core/runtime_cluster.py",
+    "ray_tpu_torch/util/__init__.py", "ray_tpu_torch/util/lockcheck.py",
+    "ray_tpu_torch/util/events.py", "ray_tpu_torch/util/metrics.py",
+    "ray_tpu_torch/util/tracing.py", "ray_tpu_torch/util/profiler.py",
+    "ray_tpu_torch/runtime_env.py", "ray_tpu_torch/gpu/__init__.py",
+    "ray_tpu_torch/gpu/topology.py")
+
+
+def test_import_walk_covers_the_cluster_runtime():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _CLUSTER_MODULES if m not in names]
+    assert not missing, missing
+
+
+_FRESH_IMPORT = """
+import sys
+{body}
+bad = sorted(m for m in sys.modules
+             if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'cloudpickle'))
+print('BAD', bad)
+"""
+
+
+def _fresh(body):
+    import os
+    import subprocess
+    import sys
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH",)}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", _FRESH_IMPORT.format(
+        body=body)], capture_output=True, text=True, env=env, cwd=str(REPO),
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    "ray_tpu_torch.core.runtime_cluster", "ray_tpu_torch.cluster.worker_main",
+    "ray_tpu_torch.cluster.worker_zygote"])
+def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
+    """A fresh interpreter: the test process itself has JAX loaded."""
+    out = _fresh(f"import {module}")
+    assert "BAD []" in out, out
+
+
+def test_zygote_preimports_leave_cuda_uninitialised():
+    """What the zygote imports before it forks must not initialise CUDA
+    (a forked child could not use it), even with torch loaded after."""
+    out = _fresh("from ray_tpu_torch.cluster import worker_zygote\n"
+                 "worker_zygote.preimport()\n"
+                 "print('TORCH_BEFORE', 'torch' in sys.modules)\n"
+                 "import torch\n"
+                 "print('CUDA_INIT', torch.cuda.is_initialized())")
+    assert "TORCH_BEFORE False" in out and "CUDA_INIT False" in out, out
+    assert "BAD []" in out, out
+
+
+class _NotAtModuleLevel:
+    pass
+
+
+def test_remote_lambda_on_the_cluster_runtime_raises_type_error():
+    """The cluster runtime ships callables by import path: a lambda or a
+    nested function is refused at ``.remote()``, naming it, before anything
+    reaches a worker. No cluster is needed to reach that check."""
+    from ray_tpu_torch.core.runtime_cluster import ClusterRuntime
+
+    class _Conductor:
+        def call(self, *a, **k):
+            raise AssertionError("nothing may reach the conductor")
+
+    rt_ = ClusterRuntime.__new__(ClusterRuntime)
+    import threading
+    rt_._fn_lock = threading.Lock()
+    rt_._fn_blobs = {}
+    rt_._registered_fns = set()
+    rt_.conductor = _Conductor()
+    prev = core_api._runtime
+    core_api._runtime = rt_
+    try:
+        with pytest.raises(TypeError, match="<lambda>.*module level"):
+            ray_tpu_torch.remote(lambda x: x).remote(1)
+
+        def nested(x):
+            return x
+
+        with pytest.raises(TypeError, match="nested.*module level"):
+            ray_tpu_torch.remote(nested).remote(1)
+    finally:
+        core_api._runtime = prev

@@ -605,3 +605,41 @@ def test_shutdown_joins_every_serve_thread_and_kills_every_replica():
         assert not left, [t.name for t in left]
     assert not [t for t in threading.enumerate()
                 if t.name.startswith("rt-torch")]
+
+
+def test_named_locks_order_like_jax():
+    """Both stacks with their lock-order sanitizer armed (util/lockcheck.py,
+    as the conftest arms the JAX one for its serve tests): the same
+    scenario takes the same named serve locks in the same order (the
+    edges between ``serve.*`` locks), and neither finds a cycle."""
+    from ray_tpu import config as jconfig
+    from ray_tpu.util import lockcheck as jlock
+    from ray_tpu_torch import config as tconfig
+    from ray_tpu_torch.util import lockcheck as tlock
+
+    def scenario(rt, serve):
+        cfg, lock = ((jconfig, jlock) if rt is ray_tpu
+                     else (tconfig, tlock))
+        lock.reset()
+        cfg.set_override("lockcheck_enabled", True)
+        try:
+            @serve.deployment(num_replicas=2)
+            def echo(x=None):
+                return x
+
+            handle = serve.run(echo.bind())
+            outs = [rt.get(handle.remote(i), timeout=TIMEOUT)
+                    for i in range(4)]
+            serve.delete("echo")
+        finally:
+            cfg.clear_override("lockcheck_enabled")
+        edges = {(a, b) for a, bs in lock.edges().items() for b in bs
+                 if a.startswith("serve.") and b.startswith("serve.")}
+        cycles = lock.cycles()
+        lock.reset()
+        return outs, sorted(edges), cycles
+
+    jax_out, port_out = _on_both(scenario)
+    assert jax_out == port_out
+    assert jax_out[0] == [0, 1, 2, 3] and jax_out[2] == []
+    assert ("serve.reconcile", "serve.controller") in port_out[1]
