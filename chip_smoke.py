@@ -238,9 +238,42 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the cluster is down (it counts them: in a container its pids are the
    host's).
 
+26. A compiled graph on the card (``ray_tpu_torch.dag``): on a port
+   ``Cluster`` as in phase 25, a ``num_gpus=1`` actor draws the flagship's
+   activation shape at the serve cell ([8, 128, 2048] bf16) on its card
+   from a per-call seed, and a CPU actor reduces it (f32 sum and a few
+   values). The same two-step graph runs compiled (``InputNode`` ->
+   ``make`` -> ``reduce``, ``experimental_compile``) at the default 1 MiB
+   slot (the 4 MiB tensor spills to the store) and at a 6 MiB slot that
+   holds it, and as the classic ``.remote()`` chain; each prints round
+   trips/s (sequential execute-and-get). Every result must equal the
+   classic path's. After ``teardown()`` no compiled graph may be alive, no
+   channel segment of the cluster's stores left and no loop on either
+   worker.
+27. MPMD pipeline training at full width (``train.pipeline.PipelineTrainer``
+   on the port's cluster): the flagship with ``tied_embeddings=False``
+   (805,306,368 parameters) and remat, 2 stages of 5 layers each in two
+   ``num_gpus=0.5`` stage actors that share the card, the ``1f1b`` schedule
+   over 4 microbatches of the train cell's batch (8 x 2048, seeded), AdamW
+   at 3e-4. First the same weights (drawn on the card from the seed) and
+   batches through ``make_lm_train_step`` in the driver: the pipeline's
+   first loss must be within ``PIPE_LOSS_TOL`` of it and the next three
+   within ``PIPE_LATER_TOL``. The stage actors must launch the flash
+   forward, dK/dV, dQ and Δ kernels (100, 40, 40, 40) times a step, counted
+   in their processes from 0 just before the timed steps. Prints step ms,
+   tokens/s, each stage's busy and codec seconds (the codec is the
+   transport: copies between card and host, pickling, spills through the
+   store), the measured efficiency beside ``bubble_bound`` (with both stages on one
+   card the efficiency measures the transport and two contexts taking
+   turns on the card, not the schedule's bubble), and each actor's peak
+   card memory; then the same at ``pipeline_slot_bytes`` of 17 MiB, where
+   the 16 MiB microbatch activations ride the ring instead of the store.
+   Teardown leaves no process of the session, no segment and no extra card
+   context.
+
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-25 print their seconds.
+the PPO learner in phase 23. Phases 17-27 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -3807,6 +3840,392 @@ def phase_cluster(card, direct_tokens_per_s):
                 back_mb_s=mb / back_s, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 26: a compiled graph on the card
+# ---------------------------------------------------------------------------
+
+CG_SHAPE = (8, 128, 2048)       # the serve cell's activations
+CG_CALLS = 40
+CG_BIG_SLOT = 6 << 20           # holds the 4 MiB bf16 tensor and its pickle
+
+
+class ActivationSource:
+    """A GPU actor: the flagship's activation shape in bf16 on its card,
+    drawn from the call's seed."""
+
+    def make(self, seed):
+        gen = torch.Generator(device="cuda").manual_seed(int(seed))
+        return torch.randn(CG_SHAPE, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    def visible(self):
+        import os
+        return os.environ.get("CUDA_VISIBLE_DEVICES")
+
+    def launches(self, reset=False):
+        """This process's flash launches (forward, dK/dV, dQ, Δ); with
+        ``reset`` they start again from 0."""
+        from ray_tpu_torch.ops import flash
+        out = (flash.launches, flash.bwd_dkv_launches,
+               flash.bwd_dq_launches, flash.bwd_delta_launches)
+        if reset:
+            flash.launches = flash.bwd_dkv_launches = 0
+            flash.bwd_dq_launches = flash.bwd_delta_launches = 0
+        return out
+
+
+class Reducer:
+    """A CPU actor: what arrived, as plain numbers."""
+
+    def reduce(self, x):
+        return (str(x.dtype), tuple(x.shape), str(x.device),
+                float(x.float().sum()), x.flatten()[:4].float().tolist())
+
+
+def _round_trips(fn, calls):
+    """(results, round trips/s) of ``calls`` sequential calls."""
+    fn(0)
+    t0 = time.perf_counter()
+    out = [fn(i) for i in range(1, calls + 1)]
+    return out, calls / (time.perf_counter() - t0)
+
+
+def phase_compiled_graph(card):
+    """Phase 26: the GPU actor's activations to a CPU actor through a
+    compiled graph, at two slot sizes, against the classic chain."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import config
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.cluster.protocol import get_client
+    from ray_tpu_torch.dag import InputNode, channel, compiled
+    t_phase = time.perf_counter()
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 4,
+                                "object_store_bytes": 1 << 30})
+    prefixes = [n.store_prefix for n in c.nodes]
+    try:
+        rt.init(address=c.address)
+        try:
+            gpu = rt.remote(num_gpus=1)(ActivationSource).remote()
+            cpu = rt.remote(Reducer).remote()
+            check(rt.get(gpu.visible.remote(), timeout=300) == "0",
+                  "compiled graph: the GPU actor sees no card")
+            classic, classic_rps = _round_trips(
+                lambda i: rt.get(cpu.reduce.remote(gpu.make.remote(i)),
+                                 timeout=120), CG_CALLS)
+            rt.get(gpu.launches.remote(reset=True), timeout=60)
+            rates = {}
+            for label, slot in (("default slot", None),
+                                ("6 MiB slot", CG_BIG_SLOT)):
+                if slot is not None:
+                    config.set_override("cgraph_slot_bytes", slot)
+                try:
+                    with InputNode() as inp:
+                        dag = _actor_node(cpu).reduce.bind(
+                            _actor_node(gpu).make.bind(inp))
+                    cg = dag.experimental_compile(max_in_flight=4)
+                finally:
+                    config.clear_override("cgraph_slot_bytes")
+                try:
+                    got, rps = _round_trips(
+                        lambda i: rt.get(cg.execute(i), timeout=120),
+                        CG_CALLS)
+                    addrs = [p.address for p in cg._installed]
+                finally:
+                    cg.teardown()
+                check(got == classic,
+                      f"compiled graph ({label}): results differ from the "
+                      f"classic chain's")
+                rates[label] = rps
+                loops = [lp for a in addrs for lp in
+                         get_client(a).call("debug_state")["cgraph_loops"]]
+                deadline = time.monotonic() + 5
+                leaked = channel.leaked_segments(prefixes)
+                while leaked and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                    leaked = channel.leaked_segments(prefixes)
+                print(f"[cgraph] {label}: {rps:.1f} round trips/s "
+                      f"({CG_CALLS} sequential execute + get of a "
+                      f"{CG_SHAPE} bf16 tensor, GPU actor to CPU actor); "
+                      f"after teardown: live graphs "
+                      f"{len(compiled._live_graphs)}, loops {loops}, "
+                      f"segments {leaked}", flush=True)
+                check(not compiled._live_graphs and not loops and not leaked,
+                      f"compiled graph ({label}): teardown left graphs "
+                      f"{compiled._live_graphs}, loops {loops}, segments "
+                      f"{leaked}")
+            print(f"[cgraph] classic .remote() chain: {classic_rps:.1f} "
+                  f"round trips/s; compiled/classic: "
+                  + ", ".join(f"{k} {v / classic_rps:.3f}"
+                              for k, v in rates.items())
+                  + f"; results equal the classic chain's ({classic[1][3]} "
+                  f"is call 2's sum) on {card}", flush=True)
+            launches = tuple(rt.get(gpu.launches.remote(), timeout=60))
+            print(f"[cgraph] flash launches in the GPU actor over the "
+                  f"compiled runs {launches}", flush=True)
+            rt.kill(gpu)
+            rt.kill(cpu)
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    seconds = time.perf_counter() - t_phase
+    print(f"[cgraph] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=launches, classic_rps=classic_rps,
+                compiled_rps=rates, seconds=seconds)
+
+
+def _actor_node(handle):
+    """A ``ClassNode`` over an existing actor, as ``compile_actor_method``
+    builds one."""
+    from ray_tpu_torch.dag.nodes import ClassNode
+    node = ClassNode(None, (), {})
+    node._actor_handle = handle
+    return node
+
+
+# ---------------------------------------------------------------------------
+# phase 27: MPMD pipeline training of the flagship in two stage actors
+# ---------------------------------------------------------------------------
+
+PIPE_STEPS = 4
+PIPE_LR = 3e-4
+PIPE_SEED = 27
+# The pipeline against make_lm_train_step from the same weights and
+# batches, both bf16 with the same kernels: the products run on
+# microbatches of 2 rows instead of 8, so cuBLAS may sum in another order.
+# Read on the H100 (700 W): the first loss 2.4e-7 off, the next three at
+# most 3.0e-4, the same in every run. At random init the losses sit near
+# ln(vocab) and the reference's own move by about 2e-3 over four steps, so
+# the losses alone cannot show that the pipeline updates its weights: the
+# parameters are held too. PIPE_PARAM_TOL bounds, over every leaf of both
+# partitions, |Δ_pipe - Δ_ref| / |Δ_ref| with Δ the change from the
+# initial weights after the four steps; a pipeline that does not update a
+# leaf reads 1.0 there. AdamW moves every element by about lr whatever its
+# gradient's size, so elements whose gradient is within bf16 rounding of 0
+# may move the other way: that is what a sound run reads (0.0949, on the
+# embedding, on the H100 at 700 W).
+PIPE_LOSS_TOL = 1e-4
+PIPE_LATER_TOL = 1e-3
+PIPE_PARAM_TOL = 0.25
+PIPE_BIG_SLOT = 17 << 20        # a 2 x 2048 x 2048 bf16 microbatch + pickle
+
+
+def _pipe_batches(cfg):
+    rng = np.random.default_rng(PIPE_SEED)
+    return [{"tokens": rng.integers(0, cfg.vocab_size, (8, cfg.max_seq))}
+            for _ in range(PIPE_STEPS)]
+
+
+def _as_partitions(params, cfg, stages=2):
+    """{(part, path): f32 numpy} of a pp_stages=1 tree, cut as the
+    pipeline's ``stages`` partitions hold it."""
+    from ray_tpu_torch.models.transformer import transformer_partition_params
+    from ray_tpu_torch.train.pipeline import _flatten, _unflatten
+    cfg_p = dataclasses.replace(cfg, pp_stages=stages)
+    tree = _unflatten(
+        (k, v.reshape((stages, -1) + tuple(v.shape[1:]))
+         if k.startswith("layers/") else v) for k, v in _flatten(params))
+    return {(p, k): np.array(v.detach().float().cpu()) for p in range(stages)
+            for k, v in _flatten(transformer_partition_params(tree, cfg_p, p))}
+
+
+def _reference_losses(cfg, batches):
+    """``make_lm_train_step``'s losses from the pipeline's weights, the
+    initial weights and the steps' change to them (``_as_partitions``)."""
+    from ray_tpu_torch.models import transformer_init
+    from ray_tpu_torch.train import make_lm_train_step
+    init_fn, step_fn, place = make_lm_train_step(cfg,
+                                                 learning_rate=PIPE_LR)
+    params = transformer_init(
+        torch.Generator(device="cuda").manual_seed(PIPE_SEED), cfg)
+    init = _as_partitions(params, cfg)
+    state = init_fn(params)
+    losses = []
+    for b in batches:
+        state, metrics = step_fn(state, place(b))
+        losses.append(metrics["loss"].item())
+    delta = {k: v - init[k]
+             for k, v in _as_partitions(state.params, cfg).items()}
+    del state, params
+    torch.cuda.empty_cache()
+    return losses, init, delta
+
+
+def _update_error(final, init, delta_ref):
+    """(worst leaf, |Δ - Δ_ref| / |Δ_ref| there) of the change from
+    ``init`` to ``final`` against the reference's change."""
+    errs = {k: float(np.linalg.norm((final[k] - init[k]) - d)
+                     / np.linalg.norm(d)) for k, d in delta_ref.items()}
+    worst = max(errs, key=errs.get)
+    return worst, errs[worst]
+
+
+def _pipeline_run(cfg, batches, label, slot_bytes=None, fetch=False):
+    """One PipelineTrainer on the running cluster: (losses, timed-step
+    metrics, stage actors' device stats); with ``fetch`` the metrics hold
+    the partitions' weights after the steps (``_as_partitions``' keys)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import config
+    from ray_tpu_torch.train.pipeline import PipelineTrainer
+    if slot_bytes is not None:
+        config.set_override("pipeline_slot_bytes", slot_bytes)
+    try:
+        t0 = time.perf_counter()
+        tr = PipelineTrainer(cfg, num_stages=2, num_microbatches=4,
+                             schedule="1f1b", learning_rate=PIPE_LR,
+                             seed=PIPE_SEED).start()
+        start_s = time.perf_counter() - t0
+    finally:
+        config.clear_override("pipeline_slot_bytes")
+    try:
+        stages = tr._groups[0]
+        first = tr.step(batches[0])
+        rt.get([h.device_stats.remote(reset=True) for h in stages],
+               timeout=120)
+        t0 = time.perf_counter()
+        timed = [tr.step(b) for b in batches[1:]]
+        seconds = time.perf_counter() - t0
+        stats = rt.get([h.device_stats.remote() for h in stages],
+                       timeout=120)
+        contexts = len(_compute_apps())
+        weights = {}
+        if fetch:
+            from ray_tpu_torch.train.pipeline import _flatten
+            for a, h in enumerate(stages):
+                tree = rt.get(h.get_partition.remote(a), timeout=300)
+                weights.update(((a, k), np.asarray(v, np.float32))
+                               for k, v in _flatten(tree))
+    finally:
+        tr.shutdown()
+    n = len(timed)
+    launches = tuple(sum(st["launches"][i] for st in stats)
+                     for i in range(4))
+    step_ms = seconds / n * 1e3
+    tokens_s = n * 8 * cfg.max_seq / seconds
+    walls = [m["wall_s"] for m in timed]
+    busy = [sum(m["busy_s"][a] for m in timed) for a in range(2)]
+    codec = [sum(m["codec_s"][a] for m in timed) for a in range(2)]
+    effs = [m["efficiency"] for m in timed]
+    print(f"[pipeline] {label}: start {start_s:.1f} s; {n} timed steps "
+          f"{step_ms:.1f} ms/step, {tokens_s:.0f} tokens/s; per stage over "
+          f"the timed steps busy {[round(b, 4) for b in busy]} s, codec "
+          f"{[round(x, 4) for x in codec]} s (share of the wall "
+          f"{[round(x / sum(walls), 4) for x in codec]}); efficiency "
+          f"{[round(e, 4) for e in effs]} against bubble_bound "
+          f"{timed[0]['bound']:.4f}; peak card memory by actor "
+          f"{[round(st['peak_bytes'] / 1e9, 3) for st in stats]} GB; flash "
+          f"launches in the stage actors {launches}", flush=True)
+    losses = [first["loss"]] + [m["loss"] for m in timed]
+    return losses, dict(step_ms=step_ms, tokens_per_s=tokens_s,
+                        busy_s=busy, codec_s=codec, wall_s=sum(walls),
+                        efficiency=effs, bound=timed[0]["bound"],
+                        peak_gb=[st["peak_bytes"] / 1e9 for st in stats],
+                        launches=launches, start_s=start_s,
+                        contexts=contexts, weights=weights)
+
+
+def phase_pipeline(card):
+    """Phase 27: the flagship (untied) trained by a 2-stage 1F1B pipeline
+    whose stage actors share the card, held to make_lm_train_step."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.models import transformer_num_params
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(flagship_cfg(remat=True),
+                              tied_embeddings=False)
+    batches = _pipe_batches(cfg)
+    torch.cuda.empty_cache()
+    want, init, delta_ref = _reference_losses(cfg, batches)
+    print(f"[pipeline] flagship untied, {transformer_num_params(cfg)} "
+          f"parameters, remat; make_lm_train_step losses {want}", flush=True)
+    free = _shm_free()
+    store_bytes = min(8 << 30, int(free * 0.8))
+    apps_before = _compute_apps()
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 4,
+                                "object_store_bytes": store_bytes})
+    prefixes = [n.store_prefix for n in c.nodes]
+    try:
+        rt.init(address=c.address)
+        try:
+            losses, spill = _pipeline_run(cfg, batches, "default slot "
+                                          "(activations spill)", fetch=True)
+            big_losses, ring = _pipeline_run(cfg, batches, "17 MiB slot "
+                                             "(activations in the ring)",
+                                             PIPE_BIG_SLOT)
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    print(f"[pipeline] losses {losses} (17 MiB slot: {big_losses}) against "
+          f"make_lm_train_step {want}: diffs {[f'{d:.3e}' for d in diffs]} "
+          f"(tol {PIPE_LOSS_TOL} first, {PIPE_LATER_TOL} after) on {card}",
+          flush=True)
+    check(all(np.isfinite(losses)) and diffs[0] <= PIPE_LOSS_TOL
+          and max(diffs[1:]) <= PIPE_LATER_TOL,
+          f"pipeline: losses {losses} against make_lm_train_step {want}")
+    weights = spill.pop("weights")
+    check(weights.keys() == delta_ref.keys(),
+          f"pipeline: the stages hold {sorted(weights)}, the reference "
+          f"{sorted(delta_ref)}")
+    worst, param_err = _update_error(weights, init, delta_ref)
+    _, control = _update_error(init, init, delta_ref)
+    del weights, init, delta_ref
+    print(f"[pipeline] the weights' change over {PIPE_STEPS} steps against "
+          f"make_lm_train_step's: |Δ - Δ_ref| / |Δ_ref| at most "
+          f"{param_err:.4f} (leaf {worst}; tol {PIPE_PARAM_TOL}); the "
+          f"initial weights in its place read {control:.4f}", flush=True)
+    check(param_err <= PIPE_PARAM_TOL,
+          f"pipeline: the stages' update of {worst} is {param_err:.4f} off "
+          f"make_lm_train_step's (tol {PIPE_PARAM_TOL})")
+    check(big_losses == losses,
+          f"pipeline: the 17 MiB slot's losses {big_losses} differ from "
+          f"the default slot's {losses}")
+    # a step: stage 0 runs its 5 layers' forward 3 times a microbatch (the
+    # forward, its replay in the backward, remat's recompute), stage 1
+    # twice (its forward runs in the backward op); each backward once
+    want_launches = tuple((PIPE_STEPS - 1) * 4 * n for n in (25, 10, 10, 10))
+    for r in (spill, ring):
+        check(r["launches"] == want_launches,
+              f"pipeline: the stage actors launched {r['launches']} "
+              f"(fwd, dkv, dq, delta) in {PIPE_STEPS - 1} steps, want "
+              f"{want_launches}")
+    deadline = time.monotonic() + 30
+    left = _session_processes()
+    segs = [f for f in os.listdir("/dev/shm")
+            if any(f.startswith(p) for p in prefixes)]
+    apps = _compute_apps()
+    while (left or segs or len(apps) > len(apps_before)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        apps = _compute_apps()
+    during = (spill["contexts"], ring["contexts"])
+    print(f"[pipeline] after shutdown: session processes {left}, segments "
+          f"{segs}, card contexts {len(apps)} (before the phase "
+          f"{len(apps_before)}, with each trainer's stage actors {during})",
+          flush=True)
+    check(min(during) > len(apps_before),
+          "pipeline: nvidia-smi lists no context for the stage workers, so "
+          "it cannot show that teardown releases them")
+    check(not left and not segs and len(apps) <= len(apps_before),
+          f"pipeline: left processes {left}, segments {segs}, contexts "
+          f"{apps}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[pipeline] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=spill["launches"], losses=losses,
+                reference_losses=want, loss_diffs=diffs,
+                update_error=param_err, update_error_leaf=str(worst),
+                no_update_error=control, spill=spill,
+                ring=ring, seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -3883,6 +4302,13 @@ def main() -> int:
     runs["cluster-gpu-worker"] = phase_cluster(card,
                                                runs["serve"]["tokens_per_s"])
     print(f"[phase] cluster: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["compiled-graph"] = phase_compiled_graph(card)
+    print(f"[phase] compiled graph: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["pipeline-mpmd"] = phase_pipeline(card)
+    print(f"[phase] pipeline: {time.perf_counter() - t0:.1f} s", flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

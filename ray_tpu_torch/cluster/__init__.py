@@ -21,7 +21,8 @@ segments and the sessions carry the prefix ``rtpt-`` (the JAX package's are
 other's. The accelerator is ``"GPU"``: the node daemon gives each GPU lease
 its own ``CUDA_VISIBLE_DEVICES``.
 Callables go to workers by import path (``core/serialization.py``). Spilling
-keeps a local-directory backend only (``spill.py``); compiled graphs
-(``dag/``) raise ``NotImplementedError`` where the daemon and the worker
-would reach them (ROADMAP.md A.5).
+keeps a local-directory backend only (``spill.py``). Compiled graphs
+(``dag/``) install their resident loops on actor workers
+(``worker_main.rpc_install_cgraph_loop``) and forward cross-host channel
+writes through the reader's daemon (``node_daemon.rpc_channel_write``).
 """

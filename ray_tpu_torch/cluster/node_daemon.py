@@ -14,15 +14,15 @@ way the raylet colocates plasma (plasma/store_runner.cc).
 Where the port differs from ``ray_tpu/cluster/node_daemon.py``: the
 accelerator is ``"GPU"``. The daemon hands each lease or actor that asks
 for GPUs card indices of its own and starts its worker with
-``CUDA_VISIBLE_DEVICES`` set to them (a share below one card gets the
-first card's index, without taking it); every other worker, and the
+``CUDA_VISIBLE_DEVICES`` set to them (a share below one card goes to a
+card whose free share still holds it, a partly used one first; a request
+of whole cards takes only untouched ones); every other worker, and the
 zygote, runs with ``CUDA_VISIBLE_DEVICES=""``, which is in their
 environment before anything touches CUDA. Workers are pooled under their
 environment key plus their card indices, so a worker whose CUDA is
 initialised only ever serves leases on the same cards, and GPU workers
 are spawned, never forked from the zygote. No TPU slice membership (the
-JAX daemon's ``tpu_slice`` and ``detect_slice``). The ``dag`` channel
-forwarder raises ``NotImplementedError`` (ROADMAP.md A.5).
+JAX daemon's ``tpu_slice`` and ``detect_slice``).
 """
 
 from __future__ import annotations
@@ -191,9 +191,9 @@ class NodeDaemon:
         resources = dict(resources)
         self.total_resources = dict(resources)
         self._avail = dict(resources)
-        # Card indices not held by a lease or an actor (whole cards).
-        self._gpu_free: List[int] = list(
-            range(int(resources.get("GPU", 0.0))))
+        # The free share of each card (1.0: untouched).
+        self._gpu_share: List[float] = [
+            1.0] * int(resources.get("GPU", 0.0))
         self._lock = lockcheck.named_lock("daemon.state")
         self._cv = threading.Condition(self._lock)
         self._owns_session_dir = session_dir is None
@@ -606,29 +606,45 @@ class NodeDaemon:
                 return ids[idx]
         return str(idx)
 
-    def _take_gpus(self, resources: Dict[str, float]) -> Tuple[int, ...]:
-        """Card indices for a lease or actor whose resources were just
-        taken. Caller holds self._lock. A share below one card gets the
-        lowest free index (or index 0) without taking it."""
+    def _pick_gpus(self, resources: Dict[str, float]
+                   ) -> Optional[Tuple[int, ...]]:
+        """The cards ``_take_gpus`` would give ``resources`` now, or None
+        when none fit. Caller holds self._lock. A share below one card goes
+        to the partly used card with the least share left that still holds
+        it, else to the lowest untouched card; whole cards are untouched
+        ones only."""
         n = float(resources.get("GPU", 0.0))
         if n <= 0:
             return ()
+        share = self._gpu_share
         if n < 1:
-            return (self._gpu_free[0] if self._gpu_free else 0,)
+            fits = [(s >= 1.0 - 1e-9, s, i) for i, s in enumerate(share)
+                    if s + 1e-9 >= n]
+            return (min(fits)[2],) if fits else None
         k = int(n + 1 - 1e-9)
-        if len(self._gpu_free) < k:
+        whole = [i for i, s in enumerate(share) if s >= 1.0 - 1e-9]
+        return tuple(whole[:k]) if len(whole) >= k else None
+
+    def _take_gpus(self, resources: Dict[str, float]) -> Tuple[int, ...]:
+        """Card indices for a lease or actor whose resources were just
+        taken, their shares taken with them. Caller holds self._lock."""
+        ids = self._pick_gpus(resources)
+        if ids is None:
             raise RuntimeError(
-                f"{k} GPU(s) granted with {len(self._gpu_free)} card "
-                "index(es) free")
-        ids, self._gpu_free = (tuple(self._gpu_free[:k]),
-                               self._gpu_free[k:])
+                f"{resources.get('GPU')} GPU granted with no card to hold "
+                f"it (free shares {self._gpu_share})")
+        n = float(resources.get("GPU", 0.0))
+        for i in ids:
+            self._gpu_share[i] = (self._gpu_share[i] - n if n < 1 else 0.0)
         return ids
 
     def _give_gpus(self, resources: Dict[str, float],
                    ids: Tuple[int, ...]) -> None:
         """Return what ``_take_gpus`` took. Caller holds self._lock."""
-        if ids and float(resources.get("GPU", 0.0)) >= 1:
-            self._gpu_free = sorted(set(self._gpu_free) | set(ids))
+        n = float(resources.get("GPU", 0.0))
+        for i in ids:
+            self._gpu_share[i] = (min(1.0, self._gpu_share[i] + n) if n < 1
+                                  else 1.0)
 
     def _ensure_zygote(self):
         """Start (once) the fork server for default-env workers. Returns
@@ -1105,7 +1121,8 @@ class NodeDaemon:
                 while True:
                     a = avail_fn()
                     if all(a.get(k, 0.0) + 1e-9 >= v
-                           for k, v in resources.items()):
+                           for k, v in resources.items()) \
+                            and self._pick_gpus(resources) is not None:
                         take(resources)
                         gpu_ids = self._take_gpus(resources)
                         break
@@ -1247,12 +1264,14 @@ class NodeDaemon:
             with self._cv:
                 a = self._resource_pool_for(strategy)[0]()
                 ready = all(a.get(k, 0.0) + 1e-9 >= v
-                            for k, v in resources.items())
+                            for k, v in resources.items()) \
+                    and self._pick_gpus(resources) is not None
                 if ready:
                     take(resources)
+                    gpu_ids = self._take_gpus(resources)
             if ready:
                 self._start_actor(actor_id, spec, incarnation,
-                                  reserved=True)
+                                  reserved=gpu_ids)
             else:
                 threading.Thread(
                     target=self._start_actor, daemon=True,
@@ -1269,21 +1288,27 @@ class NodeDaemon:
         return resources, opts.get("scheduling_strategy")
 
     def _start_actor(self, actor_id: bytes, spec: dict, incarnation: int,
-                     reserved: bool = False) -> None:
+                     reserved: Optional[Tuple[int, ...]] = None) -> None:
+        """Start an actor's worker. ``reserved`` is the card ids of an
+        actor whose resources (and card shares) the caller already took;
+        None waits here for them."""
         import pickle
         opts = spec["opts"]
         resources, strategy = self._actor_resources(spec)
         avail_fn, take, _ = self._resource_pool_for(strategy)
         cli = get_client(self.conductor_address)
         deadline = time.monotonic() + 30.0
-        if not reserved:
+        gpu_ids = reserved
+        if reserved is None:
             timed_out = False
             with self._cv:
                 while True:
                     a = avail_fn()
                     if all(a.get(k, 0.0) + 1e-9 >= v
-                           for k, v in resources.items()):
+                           for k, v in resources.items()) \
+                            and self._pick_gpus(resources) is not None:
                         take(resources)
+                        gpu_ids = self._take_gpus(resources)
                         break
                     if time.monotonic() >= deadline:
                         timed_out = True
@@ -1303,8 +1328,6 @@ class NodeDaemon:
                     pass
                 return
         from ray_tpu_torch.core.exceptions import RuntimeEnvSetupError
-        with self._lock:
-            gpu_ids = self._take_gpus(resources)
         try:
             w = self._checkout_worker(
                 _gpu_env_key(self._env_key_of(opts.get("runtime_env")),
@@ -1699,9 +1722,21 @@ class NodeDaemon:
         fine here: classic frames dispatch on the executor pool, and the
         ring itself provides the backpressure (a full ring means the
         consumer is max_in_flight behind)."""
-        raise NotImplementedError(
-            "compiled-graph channels (dag/channel.py) are still to port "
-            "(ROADMAP.md A.5, dag/)")
+        from ray_tpu_torch.dag.channel import ChannelError, ShmChannelWriter
+        with self._chan_lock:
+            w = self._chan_writers.get(chan_id)
+        if w is None:
+            try:
+                w = ShmChannelWriter(self.store, chan_id)
+            except ChannelError as e:
+                return {"ok": False, "error": str(e)}
+            with self._chan_lock:
+                w = self._chan_writers.setdefault(chan_id, w)
+        try:
+            w.write(seq, data, int(flags), timeout=timeout)
+        except ChannelError as e:
+            return {"ok": False, "error": str(e)}
+        return {"ok": True}
 
     def rpc_channel_close(self, chan_id: bytes) -> dict:
         with self._chan_lock:

@@ -759,9 +759,19 @@ class WorkerService:
         Creates the actor's input rings (consumer-side ownership) and
         starts the loop thread; normal .remote() task service continues to
         run alongside it."""
-        raise NotImplementedError(
-            "compiled execution graphs (dag/compiled.py) are still to port "
-            "(ROADMAP.md A.5, dag/)")
+        if self.actor_instance is None:
+            return {"ok": False, "error": "no actor hosted on this worker"}
+        from ray_tpu_torch.dag.compiled import (CGraphWorkerLoop,
+                                                ScheduledWorkerLoop)
+        cls = (ScheduledWorkerLoop if plan.get("mode") == "schedule"
+               else CGraphWorkerLoop)
+        with self._cgraph_lock:
+            if graph_id in self._cgraph_loops:
+                return {"ok": True, "dup": True}
+            loop = cls(self, graph_id, plan)
+            self._cgraph_loops[graph_id] = loop
+        loop.start()
+        return {"ok": True}
 
     def rpc_teardown_cgraph_loop(self, graph_id: bytes) -> dict:
         with self._cgraph_lock:

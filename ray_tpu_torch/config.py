@@ -288,10 +288,43 @@ define("log_to_driver", bool, True,
 define("conductor_persist", bool, False,
        "Journal durable conductor tables (gcs_table_storage.h role). Off "
        "for ephemeral in-process heads (their temp session dir can't be "
-       "found again); `ray_tpu_torch start --head` and explicit "
-       "Conductor(persist_dir=...) enable real restart recovery against a "
-       "stable path.")
+       "found again); an explicit Conductor(persist_dir=...) enables real "
+       "restart recovery against a stable path.")
 define("rpc_message_max_bytes", int, 512 * 1024 * 1024, "Max framed message size.")
+
+# Compiled execution graphs (dag/compiled.py + dag/channel.py)
+define("cgraph_slot_bytes", int, 1024 * 1024,
+       "Per-slot payload capacity of a compiled-graph channel ring. "
+       "Values whose serialized form exceeds this spill to the object "
+       "store and ride the slot as a reference marker.")
+define("cgraph_poll_us", int, 50,
+       "Sleep between channel-slot polls once the short spin window "
+       "misses (futex-free reader/writer synchronization).")
+define("cgraph_attach_timeout_s", float, 20.0,
+       "Deadline for a channel writer to find the reader-created shm "
+       "segment (covers install-order races at compile time).")
+define("cgraph_write_timeout_s", float, 60.0,
+       "Default deadline for one channel-slot write (ring full means the "
+       "consumer stalled; expiring poisons the graph).")
+define("cgraph_submit_timeout_s", float, 60.0,
+       "Default deadline for compiled.execute() to claim an in-flight "
+       "slot (max_in_flight executions already outstanding).")
+
+# MPMD pipeline parallelism (dag/schedule.py + train/pipeline.py)
+define("pipeline_stage_channel_slots", int, 0,
+       "Ring slots per pipeline stage channel (bounds in-flight "
+       "microbatches between adjacent partitions). 0 = auto: "
+       "min(num_microbatches, total_partitions + 1), at least 2.")
+define("pipeline_slot_bytes", int, 0,
+       "Per-slot capacity of pipeline activation/gradient channels; "
+       "0 = inherit cgraph_slot_bytes. Oversized tensors spill to the "
+       "object store exactly like compiled-graph values.")
+define("pipeline_step_timeout_s", float, 120.0,
+       "Deadline for one pipelined training step's per-stage done "
+       "barrier (covers poison propagation after a stage failure).")
+define("pipeline_max_in_flight_steps", int, 2,
+       "Training steps the driver may pipeline into the schedule before "
+       "blocking on a completed step (also the done-ring depth).")
 
 # Serve ingress (serve/http_proxy.py admission control + serve/api.py
 # handle routing + serve/controller.py drain)

@@ -6,7 +6,7 @@ ActorMethod:92). An actor is a stateful worker (a thread in the in-process
 runtime); method calls are ordered per caller and execute under the actor's
 concurrency policy (max_concurrency; async actors run on an asyncio loop).
 The class goes to the runtime by reference, beside its descriptor.
-``.bind()`` (DAG nodes) waits for the port's compiled graphs.
+``.bind()`` makes a DAG node (``dag/nodes.py``).
 """
 
 from __future__ import annotations
@@ -120,6 +120,11 @@ class ActorClass:
                        for n in methods)
         return rt.create_actor(self._desc(), self._cls, args, kwargs,
                                self._opts, methods, is_async)
+
+    def bind(self, *args, **kwargs):
+        """Lazy DAG node (parity: class_node.py:16 via .bind())."""
+        from ray_tpu_torch.dag.nodes import ClassNode
+        return ClassNode(self, args, kwargs)
 
     def __call__(self, *a, **k):
         raise TypeError(

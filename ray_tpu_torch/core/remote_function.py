@@ -4,8 +4,8 @@ Role parity: python/ray/remote_function.py:34 (RemoteFunction, `_remote` at
 :240) — holds the user callable plus default options; ``.options()`` returns
 a derived handle; ``.remote()`` submits through the connected runtime. The
 callable goes to the runtime by reference, beside its descriptor, where the
-JAX package sends a pickled blob. ``.bind()`` (DAG nodes) waits for the
-port's compiled graphs.
+JAX package sends a pickled blob. ``.bind()`` makes a DAG node
+(``dag/nodes.py``).
 """
 
 from __future__ import annotations
@@ -51,6 +51,11 @@ class RemoteFunction:
         raise TypeError(
             f"Remote function {self._fn.__qualname__!r} cannot be called "
             "directly; use .remote() (or access the original via .func).")
+
+    def bind(self, *args, **kwargs):
+        """Lazy DAG node (parity: function_node.py:12 via .bind())."""
+        from ray_tpu_torch.dag.nodes import FunctionNode
+        return FunctionNode(self, args, kwargs)
 
     @property
     def func(self):

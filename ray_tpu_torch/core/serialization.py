@@ -293,6 +293,9 @@ def _export_array(value):
     if was_tensor:
         device = str(value.device)
         try:
+            # a dtype numpy lacks (bfloat16) is known before any copy: a
+            # CUDA tensor is then copied to the host once, by the pickler
+            torch.empty(0, dtype=value.dtype).numpy()
             value = value.detach().cpu().resolve_conj().resolve_neg().numpy()
         except (TypeError, RuntimeError, NotImplementedError):
             return None  # no numpy dtype (bfloat16), sparse, meta, ...

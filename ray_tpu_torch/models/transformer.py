@@ -22,8 +22,12 @@ the JAX package. Attention runs on each rank's local blocks
 over ``tp``, or ring/Ulysses attention over ``sp``. With ``pp_stages > 1``
 the layer tree is stacked ``[P, L/P, ...]`` and the layers run as a GPipe
 pipeline over the ``pp`` axis (``ops/pipeline.py``). Expert parallelism (an
-``ep`` axis above 1) is not ported yet (ROADMAP.md A.3); nor are the MPMD
-stage functions (A.4).
+``ep`` axis above 1) is not ported yet (ROADMAP.md A.3).
+
+The MPMD pipeline's stage functions (``transformer_partition_params``,
+``transformer_stage_forward``, ``transformer_stage_loss``) cut the same
+model into ``pp_stages`` partitions for the stage actors of
+``train/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -450,6 +454,70 @@ def _nll(logits, tokens, mask):
         mask = mask[:, 1:]
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# MPMD pipeline partitioning (train/pipeline.py)
+# ---------------------------------------------------------------------------
+#
+# With cfg.pp_stages > 1 the stacked layer tree is [P, layers_per_stage,
+# ...]; partition p applies slice p with the same _stage_apply the
+# single-process model uses, so a pipeline of P partitions computes the
+# pp_stages=1 forward (layer order preserved). Partition 0 also owns the
+# embedding; the last partition owns final_norm + lm_head and the loss.
+
+def transformer_partition_params(params, cfg: TransformerConfig,
+                                 part: int) -> Dict[str, Any]:
+    """Slice the full init tree down to what partition ``part`` owns (views
+    of ``params``' tensors)."""
+    P = cfg.pp_stages
+    if P < 2:
+        raise ValueError("partitioning requires cfg.pp_stages >= 2")
+    if cfg.tied_embeddings:
+        # Tied embeddings would put one weight on two stages (grads would
+        # need a cross-stage reduction the schedule does not express).
+        raise ValueError("MPMD pipeline requires tied_embeddings=False")
+    sub: Dict[str, Any] = {
+        "layers": _map_tree(params["layers"], lambda a: a[part])}
+    if part == 0:
+        sub["embed"] = params["embed"]
+    if part == P - 1:
+        sub["final_norm"] = params["final_norm"]
+        sub["lm_head"] = params["lm_head"]
+    return sub
+
+
+def transformer_stage_forward(stage_params, x, positions,
+                              cfg: TransformerConfig, *, part: int,
+                              device=None):
+    """Forward one partition: tokens [B, S] int for partition 0 (embed
+    lookup included), activations [B, S, D] otherwise. With ``cfg.remat``
+    and grad enabled, each layer is rematerialised as in
+    ``transformer_apply``. No mesh: a stage runs on its own device (the
+    JAX signature's ``mesh`` has no caller)."""
+    dev = resolve_device(device)
+    check_device(stage_params["layers"], dev, key="ln1")
+    x = x.to(dev)
+    if part == 0:
+        x = stage_params["embed"].to(cfg.dtype)[x]
+    return _stage_apply(cfg, _unstack(stage_params["layers"]), x,
+                        positions.to(dev))
+
+
+def transformer_stage_loss(stage_params, x, tokens,
+                           cfg: TransformerConfig, *, device=None):
+    """Last partition: its layer slice, then final norm + head (f32 logits)
+    + next-token cross-entropy over the first S-1 positions (the reduction
+    of transformer_loss)."""
+    dev = resolve_device(device)
+    tokens = tokens.to(dev)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=dev).expand(b, s)
+    x = transformer_stage_forward(stage_params, x, positions, cfg,
+                                  part=cfg.pp_stages - 1, device=dev)
+    x = _rmsnorm(x, stage_params["final_norm"])
+    logits = (x @ stage_params["lm_head"].to(cfg.dtype)).float()
+    return _nll(logits, tokens, None)
 
 
 def transformer_num_params(cfg: TransformerConfig) -> int:

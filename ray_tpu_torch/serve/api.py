@@ -11,9 +11,11 @@ ActorReplicaWrapper failure handling + request retries).
 Where the port differs from the JAX module (ROADMAP.md C):
 - Deployment targets, init args and request args go to the controller and
   the replicas by reference (no ``cloudpickle``).
-- ``run(..., compile=True)`` raises ``NotImplementedError``: compiled
-  graphs (``dag/``) are ROADMAP.md A.5.
-- No ring events (A.6). The handle's lock is lockcheck's named lock
+- ``run(..., compile=True)`` raises ``NotImplementedError``: the JAX
+  handle's compiled path runs each replica's method as a compiled graph
+  (``dag/``) on the replica's actor worker, and the port's replicas are not
+  worker processes yet (ROADMAP.md A.5(b)).
+- No ring events (A.5(b)). The handle's lock is lockcheck's named lock
   ``serve.handle``, as in the JAX module.
 - ``@serve.batch`` keeps one queue per replica instance (and one for a
   plain function), where the JAX module keeps one per process, which its
@@ -399,8 +401,9 @@ def run(app, *, http_host: Optional[str] = None,
     proxy (its port is the returned handle's ``http_port``)."""
     if compile:
         raise NotImplementedError(
-            "serve.run(compile=True): compiled graphs (dag/) are not ported "
-            "yet (ROADMAP.md A.5); call serve.run without compile")
+            "serve.run(compile=True): a compiled handle runs on replicas in "
+            "worker processes, which the port's serve does not have yet "
+            "(ROADMAP.md A.5(b)); call serve.run without compile")
     if isinstance(app, Deployment):
         app = app.bind()
     handle = _deploy_graph(app)

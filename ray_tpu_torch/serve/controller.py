@@ -15,7 +15,7 @@ Where the port differs from the JAX module (ROADMAP.md C):
 - No fault-plane sites, ring events or occupancy gauge: the modules
   came with the cluster runtime (``cluster/fault_plane.py``,
   ``util/events.py``, ``util/metrics.py``), but serve's replicas are not
-  worker processes yet (ROADMAP.md A.5). The controller's two locks are
+  worker processes yet (ROADMAP.md A.5(b)). The controller's two locks are
   lockcheck's named locks ``serve.controller`` and ``serve.reconcile``,
   as in the JAX module.
 - Liveness comes from the runtime's own actor state and load from the

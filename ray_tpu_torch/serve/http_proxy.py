@@ -17,8 +17,8 @@ serve_max_ongoing_requests). Past the queue budget requests shed with
 carry a deadline (serve_request_timeout_s) and time out with 504, the
 in-flight call cancelled rather than leaked.
 
-Where the port differs from the JAX module: no fault-plane admission site
-(ROADMAP.md A.5) and no ring events or probe (A.6). ``close`` stops the
+Where the port differs from the JAX module: no fault-plane admission
+site, ring events or probe (ROADMAP.md A.5(b)). ``close`` stops the
 listener, cancels the open connections and joins the loop thread and both
 executors, so no thread of a closed proxy is left; the JAX proxy lives in
 its own process and leaves that to the process's end.

@@ -393,6 +393,67 @@ class TestClusterRuntimeCases:
             cluster.remove_node(node2, graceful=True)
         _reap([node2.store_prefix])
 
+    def test_gpu_shares_go_to_a_card_that_holds_them(self, cluster):
+        """Shares below one card (ROADMAP.md C.1) on a node with two faked
+        cards: two 0.6 shares cannot share a card, so their workers see
+        different cards; a whole card then waits (0.8 free in all, no card
+        untouched), and so does a 0.5 share (0.4 free on each card). Once
+        the 0.6 actors are gone, two 0.5 actors share one card."""
+        node2 = cluster.add_node(num_cpus=4, num_gpus=2)
+        cluster.wait_for_nodes(2)
+        try:
+            big = [CardHolder.options(num_gpus=0.6).remote()
+                   for _ in range(2)]
+            seen = rt.get([h.visible.remote() for h in big], timeout=60)
+            assert sorted(seen) == ["0", "1"]
+            whole = rt.remote(num_gpus=1)(visible_cards).remote()
+            half = rt.remote(num_gpus=0.5)(visible_cards).remote()
+            ready, _ = rt.wait([whole, half], num_returns=1, timeout=1.5)
+            assert ready == []
+            for h in big:
+                rt.kill(h)
+            assert rt.get(whole, timeout=60) in ("0", "1")
+            assert rt.get(half, timeout=60) in ("0", "1")
+            # the tasks' leases go back once the submitter lets them go
+            _wait_until(lambda: node2._gpu_share == [1.0, 1.0], timeout=30,
+                        msg="both cards free again")
+            pair = [CardHolder.options(num_gpus=0.5).remote()
+                    for _ in range(2)]
+            seen = rt.get([h.visible.remote() for h in pair], timeout=60)
+            assert seen[0] == seen[1] and seen[0] in ("0", "1")
+            for h in pair:
+                rt.kill(h)
+        finally:
+            cluster.remove_node(node2, graceful=True)
+        _reap([node2.store_prefix])
+
+    def test_gpu_share_actor_waits_for_a_card_that_holds_it(self, cluster):
+        """Actors of 0.6, 0.6 and 0.5 on two faked cards: 0.8 is free in
+        all but 0.4 on each card, so the third actor waits rather than
+        being started on no card; it starts on the card that the first
+        0.6 actor leaves, and every share comes back once all are gone."""
+        node2 = cluster.add_node(num_cpus=4, num_gpus=2)
+        cluster.wait_for_nodes(2)
+        try:
+            big = [CardHolder.options(num_gpus=0.6).remote()
+                   for _ in range(2)]
+            seen = rt.get([h.visible.remote() for h in big], timeout=60)
+            assert sorted(seen) == ["0", "1"]
+            third = CardHolder.options(num_gpus=0.5).remote()
+            ref = third.visible.remote()
+            ready, _ = rt.wait([ref], num_returns=1, timeout=1.5)
+            assert ready == []
+            rt.kill(big[0])
+            assert rt.get(ref, timeout=60) == seen[0]
+            for h in (big[1], third):
+                rt.kill(h)
+            _wait_until(lambda: node2._avail.get("GPU") == pytest.approx(2.0)
+                        and node2._gpu_share == [1.0, 1.0], timeout=30,
+                        msg="both cards free again")
+        finally:
+            cluster.remove_node(node2, graceful=True)
+        _reap([node2.store_prefix])
+
     def test_cluster_resources(self, cluster):
         res = rt.cluster_resources()
         assert res.get("CPU", 0) >= 4

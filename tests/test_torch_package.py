@@ -16,6 +16,7 @@ from ray_tpu_torch import rl as trl
 from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
+from ray_tpu_torch.models import transformer as ttransformer
 from ray_tpu_torch.ops import pipeline as tpipeline
 from ray_tpu_torch.parallel import mesh as tmesh
 from ray_tpu_torch.rl import offline as toffline
@@ -29,6 +30,7 @@ from ray_tpu_torch.rl.algorithms import appo as tappo
 from ray_tpu_torch.rl.algorithms import dqn as tdqn
 from ray_tpu_torch.rl.algorithms import sac as tsac
 from ray_tpu_torch.rl.algorithms import td3 as ttd3
+from ray_tpu_torch.train import pipeline as tpipetrain
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -112,7 +114,13 @@ def test_import_walk_covers_every_module_of_the_port():
                    "ray_tpu_torch/serve/__init__.py",
                    "ray_tpu_torch/serve/api.py",
                    "ray_tpu_torch/serve/controller.py",
-                   "ray_tpu_torch/serve/http_proxy.py", "chip_smoke.py"):
+                   "ray_tpu_torch/serve/http_proxy.py",
+                   "ray_tpu_torch/dag/__init__.py",
+                   "ray_tpu_torch/dag/nodes.py",
+                   "ray_tpu_torch/dag/schedule.py",
+                   "ray_tpu_torch/dag/channel.py",
+                   "ray_tpu_torch/dag/compiled.py",
+                   "ray_tpu_torch/train/pipeline.py", "chip_smoke.py"):
         assert module in names
 
 
@@ -227,6 +235,14 @@ ENTRY_POINTS = {
     "transformer_apply(mesh=)": lambda cfg: tmodels.transformer_apply(
         {}, torch.zeros(1, 4, dtype=torch.long), cfg, mesh=object()),
     "PPOLearner(mesh=)": lambda cfg: trl.PPOLearner(RL_SPEC, mesh=object()),
+    "transformer_stage_forward": lambda cfg: ttransformer.
+        transformer_stage_forward({}, torch.zeros(1, 4, dtype=torch.long),
+                                  torch.zeros(1, 4, dtype=torch.long),
+                                  cfg, part=0),
+    "transformer_stage_loss": lambda cfg: ttransformer.transformer_stage_loss(
+        {}, torch.zeros(1, 4, 32), torch.zeros(1, 4, dtype=torch.long), cfg),
+    "PipelineStageActor": lambda cfg: tpipetrain.PipelineStageActor(cfg, [0]),
+    "PipelineTrainer": lambda cfg: tpipetrain.PipelineTrainer(cfg),
     # Not here: rl.algorithms.Bandit. Like the JAX package's, it skips the
     # base init and runs on the host only: it takes no device, so it has
     # nothing to refuse without a card (ROADMAP.md C).
