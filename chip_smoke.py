@@ -270,10 +270,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the 16 MiB microbatch activations ride the ring instead of the store.
    Teardown leaves no process of the session, no segment and no extra card
    context.
+28. The trainer on the card (``train.TorchTrainer`` on a port ``Cluster``
+   whose head counts the card as ``"GPU": 1``): first the driver runs
+   phase 5's program (the flagship, remat, tied, AdamW at batch 8 x 2048,
+   weights and tokens from seed 3) for 1 settling and 3 timed steps and
+   frees it. Then ``TorchTrainer(gang_loop, scaling_config=
+   ScalingConfig(num_workers=1))``, ``use_gpu`` left at its default (the
+   card): a one-rank NCCL gang whose worker process leases the card. The
+   loop checks its NCCL group of one and its device (``cuda:0`` of one
+   visible card), runs the same program on ``torch_utils.get_device()``
+   with a ``session.report`` each step, the flash launches counted in the
+   worker from 0 before the timed steps (they must be (60, 30, 30, 30)),
+   and its peak card memory; then ResNet-50 at phase 11's point (3 warm
+   and 10 timed steps, no flash launch). The gang's losses must be within
+   ``GANG_LOSS_TOL`` of the driver's and its first ResNet loss within
+   ``RESNET_FIRST_LOSS_TOL`` of phase 11's. Prints step ms, tokens/s, MFU,
+   the ratio to the driver's step ms, the seconds from ``fit()`` to the
+   first report and of the whole ``fit()``, and ResNet-50's images/s
+   beside phase 11's. Teardown leaves no process, segment or extra card
+   context.
 
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-27 print their seconds.
+the PPO learner in phase 23. Phases 17-28 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -4226,6 +4245,284 @@ def phase_pipeline(card):
                 ring=ring, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the trainer on the card (a one-rank NCCL gang)
+# ---------------------------------------------------------------------------
+
+GANG_SEED = 3             # phase 5's weights and batch
+GANG_TIMED = 3            # after one settling step
+# The gang worker against the driver, the same program on the same card:
+# the same kernels and cuBLAS calls from the same weights and batch, so the
+# losses differ only where a reduction's order is not fixed (atomics in
+# the embedding's backward); phase 23 holds its one-rank mesh step to the
+# same bound.
+GANG_LOSS_TOL = 2e-3
+RESNET_GANG_WARM, RESNET_GANG_TIMED = 3, 10
+# the first ResNet-50 loss (bf16 convolutions, cudnn.benchmark on) in the
+# gang against phase 11's from the same seeded weights and images: cuDNN
+# may time its way to other algorithms in another process
+RESNET_FIRST_LOSS_TOL = 2e-2
+
+
+def _gang_lm(session, dev):
+    """Phase 5's flagship train step in the gang worker: 1 settling step,
+    then GANG_TIMED timed steps, the flash launches counted from 0 before
+    them; a report each step."""
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = flagship_cfg(remat=True)
+    tokens = np.random.default_rng(GANG_SEED).integers(
+        0, cfg.vocab_size, (8, cfg.max_seq))
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_fn, step_fn, place = make_lm_train_step(cfg, device=dev)
+    state = init_fn(torch.Generator(device=dev).manual_seed(GANG_SEED))
+    data = place({"tokens": tokens})
+    for i in range(1 + GANG_TIMED):
+        if i == 1:
+            _reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step_fn(state, data)
+        loss = m["loss"].item()     # waits for the step
+        torch.cuda.synchronize(dev)
+        report = {"part": "lm", "step": i, "loss": loss,
+                  "step_ms": (time.perf_counter() - t0) * 1e3,
+                  "t": time.time()}
+        if i == GANG_TIMED:
+            report.update(launches=list(_launch_counts()),
+                          peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                          contexts=len(_compute_apps()))
+        session.report(report)
+    del state, data
+    torch.cuda.empty_cache()
+
+
+def _gang_resnet(session, dev):
+    """Phase 11's ResNet-50 step in the gang worker: RESNET_GANG_WARM
+    warm-up steps, then RESNET_GANG_TIMED timed ones in one window."""
+    from ray_tpu_torch.train import make_resnet_train_step
+    batch, size = 256, 224
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        rng = np.random.default_rng(0)       # bench_resnet's data
+        host = {"image": rng.normal(size=(batch, size, size, 3))
+                .astype(np.float32),
+                "label": rng.integers(0, 1000, (batch,))}
+        torch.cuda.reset_peak_memory_stats(dev)
+        init_fn, step_fn, place = make_resnet_train_step(
+            num_classes=1000, image_size=size, learning_rate=0.1,
+            device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        data = place(host)
+        del host
+        losses = []
+        for _ in range(RESNET_GANG_WARM):
+            state, m = step_fn(state, data)
+            losses.append(m["loss"].item())
+        _reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(RESNET_GANG_TIMED):
+            state, m = step_fn(state, data)
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        losses.append(m["loss"].item())
+        session.report({
+            "part": "resnet", "first_loss": losses[0],
+            "last_loss": losses[-1], "finite": bool(np.isfinite(losses)
+                                                    .all()),
+            "step_ms": seconds / RESNET_GANG_TIMED * 1e3,
+            "images_per_s": RESNET_GANG_TIMED * batch / seconds,
+            "launches": list(_launch_counts()),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "t": time.time()})
+        del state, data
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+
+
+def gang_loop(config):
+    """Phase 28's loop in the one-rank gang's worker: the flagship, then
+    ResNet-50, each on the worker's card (``torch_utils.get_device()``)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train import torch_utils
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1,
+          f"trainer-gang: the worker's group is "
+          f"{dist.get_backend() if dist.is_initialized() else None} of "
+          f"{dist.get_world_size() if dist.is_initialized() else 0}, want "
+          f"nccl of 1")
+    torch.backends.cuda.matmul.allow_tf32 = False    # as phase 1 sets them
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch_utils.get_device()
+    check(dev == torch.device("cuda:0") and torch.cuda.device_count() == 1,
+          f"trainer-gang: the worker's device is {dev} of "
+          f"{torch.cuda.device_count()} visible cards")
+    _gang_lm(session, dev)
+    _gang_resnet(session, dev)
+
+
+def _driver_lm_steps(cfg):
+    """The gang's flagship program in the driver: (losses, timed step
+    ms), with the same per-step synchronize."""
+    from ray_tpu_torch.train import make_lm_train_step
+    tokens = np.random.default_rng(GANG_SEED).integers(
+        0, cfg.vocab_size, (8, cfg.max_seq))
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(GANG_SEED))
+    data = place({"tokens": tokens})
+    losses, ms = [], []
+    for _ in range(1 + GANG_TIMED):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, data)
+        losses.append(m["loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del state, data
+    torch.cuda.empty_cache()
+    return losses, ms[1:]
+
+
+def phase_trainer_gang(card, resnet_run):
+    """Phase 28: TorchTrainer over a one-rank NCCL gang on a port Cluster
+    that counts the card, training the flagship and ResNet-50 in the gang's
+    worker process, held to the driver's steps."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.models import transformer_num_params
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg(remat=True)
+    want, driver_ms = _driver_lm_steps(cfg)
+    driver_step_ms = float(np.mean(driver_ms))
+    print(f"[trainer-gang] the driver's make_lm_train_step (phase 5's "
+          f"weights and batch, seed {GANG_SEED}): losses {want}, timed step "
+          f"ms {[round(x, 2) for x in driver_ms]}", flush=True)
+    apps_before = _compute_apps()
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 4, "object_store_bytes": 1 << 30})
+    prefixes = [n.store_prefix for n in c.nodes]
+    try:
+        rt.init(address=c.address)
+        try:
+            res = rt.cluster_resources()
+            check(res.get("GPU") == 1.0,
+                  f"trainer-gang: the head counts {res.get('GPU')} GPUs, "
+                  f"want 1")
+            with tempfile.TemporaryDirectory() as tmp:
+                t_fit = time.time()
+                result = TorchTrainer(
+                    gang_loop, scaling_config=ScalingConfig(num_workers=1),
+                    run_config=RunConfig(storage_path=tmp,
+                                         name="trainer-gang")).fit()
+                fit_s = time.time() - t_fit
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    check(result.error is None, f"trainer-gang: the gang failed: "
+                                f"{result.error}")
+    hist = result.metrics_history
+    lm = [m for m in hist if m["part"] == "lm"]
+    resnet = [m for m in hist if m["part"] == "resnet"]
+    check(len(lm) == 1 + GANG_TIMED and len(resnet) == 1,
+          f"trainer-gang: {len(lm)} flagship and {len(resnet)} ResNet "
+          f"reports")
+    losses = [m["loss"] for m in lm]
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    gang_ms = [m["step_ms"] for m in lm[1:]]
+    step_ms = float(np.mean(gang_ms))
+    launches = tuple(lm[-1]["launches"])
+    want_launches = tuple(GANG_TIMED * n for n in
+                          (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers,
+                           cfg.n_layers))
+    tokens_per_s = 8 * cfg.max_seq / (step_ms / 1e3)
+    n_params = transformer_num_params(cfg)
+    flops_per_token = 6 * n_params + 12 * cfg.n_layers * cfg.d_model * \
+        cfg.max_seq
+    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+    first_report_s = lm[0]["t"] - t_fit
+    print(f"[trainer-gang] flagship in the gang worker: losses {losses} "
+          f"against the driver's {want}: diffs "
+          f"{[f'{d:.3e}' for d in diffs]}, largest {max(diffs):.3e} (tol "
+          f"{GANG_LOSS_TOL})", flush=True)
+    print(f"[trainer-gang] {GANG_TIMED} timed steps in the worker: "
+          f"{[round(x, 2) for x in gang_ms]} ms, mean {step_ms:.2f} ms/step,"
+          f" {tokens_per_s:.0f} tokens/s, MFU {mfu:.4f} (6N + 12LdS = "
+          f"{flops_per_token:.4e} flop/token against 989 TFLOP/s); the "
+          f"driver's {driver_step_ms:.2f} ms/step, gang/driver "
+          f"{step_ms / driver_step_ms:.4f}; peak card memory in the worker "
+          f"{lm[-1]['peak_gb']:.2f} GB; flash launches (fwd, dkv, dq, "
+          f"delta) {launches} in the worker; fit() to the first report "
+          f"{first_report_s:.1f} s, fit() {fit_s:.1f} s on {card}",
+          flush=True)
+    check(all(np.isfinite(losses)) and max(diffs) <= GANG_LOSS_TOL,
+          f"trainer-gang: the gang's losses {losses} against the driver's "
+          f"{want}")
+    check(launches == want_launches,
+          f"trainer-gang: the worker launched {launches} in {GANG_TIMED} "
+          f"steps, want {want_launches}")
+    r = resnet[0]
+    loss_diff = abs(r["first_loss"] - resnet_run["losses"][0])
+    print(f"[trainer-gang] ResNet-50 in the gang worker (batch 256 at 224², "
+          f"SGD 0.1 Nesterov, bf16 channels_last): {RESNET_GANG_TIMED} "
+          f"timed steps after {RESNET_GANG_WARM} warm-up, {r['step_ms']:.2f}"
+          f" ms/step, {r['images_per_s']:.1f} images/s beside phase 11's "
+          f"driver {resnet_run['images_per_s']:.1f} images/s (gang/driver "
+          f"{r['images_per_s'] / resnet_run['images_per_s']:.4f}); first "
+          f"loss {r['first_loss']:.5f} against phase 11's "
+          f"{resnet_run['losses'][0]:.5f} (diff {loss_diff:.3e}, tol "
+          f"{RESNET_FIRST_LOSS_TOL}); last {r['last_loss']:.5f}; peak "
+          f"{r['peak_gb']:.2f} GB; flash launches {tuple(r['launches'])} on "
+          f"{card}", flush=True)
+    check(r["finite"] and loss_diff <= RESNET_FIRST_LOSS_TOL
+          and r["last_loss"] < r["first_loss"],
+          f"trainer-gang: ResNet losses first {r['first_loss']} (phase 11 "
+          f"{resnet_run['losses'][0]}), last {r['last_loss']}")
+    check(tuple(r["launches"]) == (0, 0, 0, 0),
+          f"trainer-gang: the ResNet step launched {r['launches']}")
+    deadline = time.monotonic() + 30
+    left = _session_processes()
+    segs = [f for f in os.listdir("/dev/shm")
+            if any(f.startswith(p) for p in prefixes)]
+    apps = _compute_apps()
+    while (left or segs or len(apps) > len(apps_before)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        apps = _compute_apps()
+    during = lm[-1]["contexts"]
+    print(f"[trainer-gang] after shutdown: session processes {left}, "
+          f"segments {segs}, card contexts {len(apps)} (before the phase "
+          f"{len(apps_before)}, with the gang worker {during})", flush=True)
+    check(during > len(apps_before),
+          "trainer-gang: nvidia-smi lists no context for the gang worker, "
+          "so it cannot show that teardown releases it")
+    check(not left and not segs and len(apps) <= len(apps_before),
+          f"trainer-gang: left processes {left}, segments {segs}, contexts "
+          f"{apps}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[trainer-gang] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=launches, losses=losses, driver_losses=want,
+                loss_diffs=diffs, step_ms=step_ms,
+                driver_step_ms=driver_step_ms,
+                ratio=step_ms / driver_step_ms, tokens_per_s=tokens_per_s,
+                mfu=mfu, peak_gb=lm[-1]["peak_gb"],
+                first_report_s=first_report_s, fit_s=fit_s,
+                resnet={k: r[k] for k in ("step_ms", "images_per_s",
+                                          "first_loss", "last_loss",
+                                          "peak_gb")},
+                resnet_driver_images_per_s=resnet_run["images_per_s"],
+                seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -4309,6 +4606,10 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["pipeline-mpmd"] = phase_pipeline(card)
     print(f"[phase] pipeline: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["trainer-gang"] = phase_trainer_gang(card, runs["resnet_train"])
+    print(f"[phase] trainer gang: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

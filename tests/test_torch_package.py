@@ -243,6 +243,10 @@ ENTRY_POINTS = {
         {}, torch.zeros(1, 4, 32), torch.zeros(1, 4, dtype=torch.long), cfg),
     "PipelineStageActor": lambda cfg: tpipetrain.PipelineStageActor(cfg, [0]),
     "PipelineTrainer": lambda cfg: tpipetrain.PipelineTrainer(cfg),
+    "TorchTrainer.fit": lambda cfg: ttrain.TorchTrainer(_loop).fit(),
+    "DataParallelTrainer(ScalingConfig()).fit": lambda cfg:
+        ttrain.DataParallelTrainer(
+            _loop, scaling_config=ttrain.ScalingConfig()).fit(),
     # Not here: rl.algorithms.Bandit. Like the JAX package's, it skips the
     # base init and runs on the host only: it takes no device, so it has
     # nothing to refuse without a card (ROADMAP.md C).
@@ -251,6 +255,13 @@ ENTRY_POINTS = {
     # its entry points are the rows above.
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
+
+
+def _loop(config):
+    """A train loop (module-level: the trainer sends loops by import
+    path)."""
+
+
 _QKV = [torch.zeros(1, 4, 2, 8)] * 3
 VIT = tmodels.ViTConfig(image_size=32, patch_size=8, num_classes=10,
                         d_model=32, n_layers=1, n_heads=2)
@@ -350,6 +361,24 @@ _CLUSTER_MODULES = (
     "ray_tpu_torch/gpu/topology.py")
 
 
+_TRAINER_MODULES = (
+    "ray_tpu_torch/air/__init__.py", "ray_tpu_torch/air/config.py",
+    "ray_tpu_torch/air/checkpoint.py", "ray_tpu_torch/air/result.py",
+    "ray_tpu_torch/air/session.py", "ray_tpu_torch/train/worker_group.py",
+    "ray_tpu_torch/train/weight_sync.py",
+    "ray_tpu_torch/train/backend_executor.py",
+    "ray_tpu_torch/train/torch_utils.py", "ray_tpu_torch/train/trainer.py",
+    "ray_tpu_torch/util/placement_group.py",
+    "ray_tpu_torch/util/scheduling_strategies.py",
+    "ray_tpu_torch/util/collective.py")
+
+
+def test_import_walk_covers_the_trainer():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _TRAINER_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -381,11 +410,21 @@ def _fresh(body):
 
 @pytest.mark.parametrize("module", [
     "ray_tpu_torch.core.runtime_cluster", "ray_tpu_torch.cluster.worker_main",
-    "ray_tpu_torch.cluster.worker_zygote"])
+    "ray_tpu_torch.cluster.worker_zygote", "ray_tpu_torch.train.trainer",
+    "ray_tpu_torch.util.collective"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
     assert "BAD []" in out, out
+
+
+def test_train_worker_class_loads_without_torch():
+    """A train worker that runs no step starts without loading torch: the
+    actor class's module and the air session load none."""
+    out = _fresh("import ray_tpu_torch.train.worker_group\n"
+                 "import ray_tpu_torch.air.session\n"
+                 "print('TORCH', 'torch' in sys.modules)")
+    assert "TORCH False" in out and "BAD []" in out, out
 
 
 def test_zygote_preimports_leave_cuda_uninitialised():
