@@ -289,10 +289,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    first report and of the whole ``fit()``, and ResNet-50's images/s
    beside phase 11's. Teardown leaves no process, segment or extra card
    context.
+29. The data library feeding the trainer (``ray_tpu_torch.data`` on a port
+   ``Cluster`` whose head counts the card as ``"GPU": 1``, 4 CPUs and a 2
+   GiB store): at least 16 MiB of seeded synthetic text (words drawn from
+   ``DATA_WORDS``) through ``from_items(parallelism=16)`` ->
+   ``tokenize_and_pack(seq_len=2048)`` -> ``random_shuffle(seed=3)``,
+   materialized on the cluster's CPU workers, with its documents, bytes,
+   rows, seconds and tokens/s; and 13 blocks of 256 seeded uint8 images at
+   224² (``range(...).map_batches(data_images)``, 500 MB). Then
+   ``TorchTrainer(data_gang_loop, datasets={"train": ..., "images": ...},
+   scaling_config=ScalingConfig(num_workers=1))``: the worker trains the
+   flagship at phase 28's cell from its shard's batches
+   (``iter_torch_batches(batch_size=8, drop_last=True)``, each copied to
+   the card), 1 settling and 3 timed steps that must launch (60, 30, 30,
+   30), with the wait for each batch, then drains the rest of its shard
+   through the copy to the card (rows/s, MB/s); then ResNet-50 from the
+   image shard (each batch copied to the card and converted there), 3 warm
+   and 10 timed steps. The losses must be within ``GANG_LOSS_TOL`` of the
+   driver's steps on the same rows and the first ResNet loss within
+   ``RESNET_FIRST_LOSS_TOL``. Prints step ms and images/s beside phase
+   28's, tokens/s, MFU and the seconds from ``fit()`` to the first report.
+   pyarrow, pandas and PIL must not be loaded in the driver or the worker.
+   Teardown leaves no process, segment or extra card context.
 
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-28 print their seconds.
+the PPO learner in phase 23. Phases 17-29 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -4523,6 +4545,460 @@ def phase_trainer_gang(card, resnet_run):
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the data library feeding the trainer's gang
+# ---------------------------------------------------------------------------
+
+DATA_TEXT_BYTES = 16 << 20      # the synthetic corpus, at least
+DATA_BLOCKS = 16                # from_items' parallelism
+DATA_BATCH = 8                  # the train cell's batch of 8 x 2048
+IMAGE_BLOCKS, IMAGE_BATCH, IMAGE_SIZE = 13, 256, 224
+OPTIONAL_FORMATS = ("pyarrow", "pandas", "PIL")
+# The corpus' words (the phase draws documents of them with numpy).
+DATA_WORDS = tuple("""
+the of and to in is was for on that with as by at from his her it an
+were are which this be has had not but or have first one their its new
+after who they two been more also than other time into only most some
+made such when out may over during would about all there him up many
+can year city these then later world under between both before while
+where since three years second used part through however state high
+number found school known small large called early each place because
+system group water river north south east west during house model train
+data block batch token stream shard worker cluster store tensor kernel
+graph layer value queue actor task memory device card model step loss
+""".split())
+
+
+def _loaded_formats():
+    return [m for m in OPTIONAL_FORMATS if sys.modules.get(m) is not None]
+
+
+def _corpus(seed, nbytes):
+    """Seeded documents of words from ``DATA_WORDS``: at least ``nbytes``
+    of ASCII text in documents of 100-3000 words."""
+    rng = np.random.default_rng(seed)
+    words = np.array(DATA_WORDS, dtype=object)
+    mean_len = np.mean([len(w) + 1 for w in DATA_WORDS])
+    idx = rng.integers(0, len(words), int(nbytes / mean_len * 1.05))
+    docs, total, at = [], 0, 0
+    while total < nbytes:
+        n = int(rng.integers(100, 3001))
+        if at + n > len(idx):
+            idx = np.concatenate([idx, rng.integers(0, len(words), n)])
+        text = " ".join(words[idx[at:at + n]].tolist())
+        at += n
+        docs.append({"text": text})
+        total += len(text)
+    return docs, total
+
+
+def data_images(batch):
+    """``map_batches`` over ``range``'s ids: seeded uint8 NHWC images of
+    ``IMAGE_SIZE``² and int64 labels, one draw a block (runs in the
+    cluster's CPU workers)."""
+    ids = np.asarray(batch["id"])
+    rng = np.random.default_rng((GANG_SEED, int(ids[0])))
+    return {"image": rng.integers(0, 256, (len(ids), IMAGE_SIZE,
+                                           IMAGE_SIZE, 3), dtype=np.uint8),
+            "label": (ids * 7919 % 1000).astype(np.int64)}
+
+
+def _resnet_input(images):
+    """uint8 NHWC on the card -> the step's float input in [-1, 1]."""
+    return images.to(torch.float32).div_(127.5).sub_(1.0)
+
+
+def _data_gang_lm(session, dev):
+    """The flagship's train cell fed from the ``train`` shard: 1 settling
+    step, then GANG_TIMED timed ones (each batch fetched, copied to the
+    card and stepped), the flash launches counted from 0 before them; then
+    the rest of the shard through the copy to the card alone."""
+    from ray_tpu_torch.train import make_lm_train_step
+    cfg = flagship_cfg(remat=True)
+    torch.cuda.reset_peak_memory_stats(dev)
+    init_fn, step_fn, place = make_lm_train_step(cfg, device=dev)
+    state = init_fn(torch.Generator(device=dev).manual_seed(GANG_SEED))
+    batches = iter(session.get_dataset_shard("train").iter_torch_batches(
+        batch_size=DATA_BATCH, drop_last=True))
+    for i in range(1 + GANG_TIMED):
+        if i == 1:
+            _reset_launch_counts()
+        t0 = time.perf_counter()
+        batch = next(batches)
+        data = place({"tokens": batch["tokens"].to(dev)})
+        wait_ms = (time.perf_counter() - t0) * 1e3
+        state, m = step_fn(state, data)
+        loss = m["loss"].item()     # waits for the step
+        torch.cuda.synchronize(dev)
+        report = {"part": "lm", "step": i, "loss": loss, "wait_ms": wait_ms,
+                  "step_ms": (time.perf_counter() - t0) * 1e3,
+                  "t": time.time()}
+        if i == GANG_TIMED:
+            report.update(launches=list(_launch_counts()),
+                          peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+                          contexts=len(_compute_apps()))
+        session.report(report)
+    del state, data
+    torch.cuda.empty_cache()
+    rows, nbytes = 0, 0
+    t0 = time.perf_counter()
+    for batch in batches:
+        on_card = batch["tokens"].to(dev)
+        rows += on_card.shape[0]
+        nbytes += on_card.numel() * on_card.element_size()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    session.report({"part": "drain", "rows": rows, "seconds": seconds,
+                    "rows_per_s": rows / seconds,
+                    "mb_per_s": nbytes / seconds / 1e6, "t": time.time()})
+
+
+def _data_gang_resnet(session, dev):
+    """Phase 28's ResNet-50 step fed from the ``images`` shard: each
+    batch's uint8 images fetched, copied to the card and converted there;
+    RESNET_GANG_WARM warm-up steps (their copies split with the card
+    idle), then RESNET_GANG_TIMED timed ones."""
+    from ray_tpu_torch.train import make_resnet_train_step
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        init_fn, step_fn, place = make_resnet_train_step(
+            num_classes=1000, image_size=IMAGE_SIZE, learning_rate=0.1,
+            device=dev)
+        state = init_fn(torch.Generator(device=dev).manual_seed(0))
+        batches = iter(session.get_dataset_shard("images")
+                       .iter_torch_batches(batch_size=IMAGE_BATCH))
+
+        def fetch(waits):
+            t0 = time.perf_counter()
+            b = next(batches)
+            t1 = time.perf_counter()
+            data = {"image": _resnet_input(b["image"].to(dev)),
+                    "label": b["label"].to(dev)}
+            waits.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            return data
+
+        def split_copy():
+            """A warm-up batch's copy with the card idle: from the store's
+            mapping, then the same bytes from private host memory (and the
+            host copy into it), each ending in a synchronize."""
+            torch.cuda.synchronize(dev)
+            b = next(batches)
+            t0 = time.perf_counter()
+            image = b["image"].to(dev)
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            private = b["image"].clone()
+            t2 = time.perf_counter()
+            private.to(dev)
+            torch.cuda.synchronize(dev)
+            t3 = time.perf_counter()
+            copies.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3,
+                           (t3 - t2) * 1e3))
+            return {"image": _resnet_input(image),
+                    "label": b["label"].to(dev)}
+
+        timed, copies, losses = [], [], []
+        for _ in range(RESNET_GANG_WARM):
+            state, m = step_fn(state, split_copy())
+            losses.append(m["loss"].item())
+        _reset_launch_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(RESNET_GANG_TIMED):
+            state, m = step_fn(state, fetch(timed))
+        torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        losses.append(m["loss"].item())
+        session.report({
+            "part": "resnet", "first_loss": losses[0],
+            "last_loss": losses[-1],
+            "finite": bool(np.isfinite(losses).all()),
+            "step_ms": seconds / RESNET_GANG_TIMED * 1e3,
+            "images_per_s": RESNET_GANG_TIMED * IMAGE_BATCH / seconds,
+            "fetch_ms": [w[0] for w in timed], "copy_ms": [w[1] for w in timed],
+            "idle_copies_ms": copies, "batch_mb": IMAGE_BATCH * IMAGE_SIZE
+            * IMAGE_SIZE * 3 / 1e6,
+            "launches": list(_launch_counts()),
+            "left": sum(1 for _ in batches), "t": time.time()})
+        del state
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+
+
+def data_gang_loop(config):
+    """Phase 29's loop in the one-rank gang's worker: the flagship fed from
+    the ``train`` shard, then ResNet-50 from the ``images`` shard."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train import torch_utils
+    check(dist.is_initialized() and dist.get_backend() == "nccl"
+          and dist.get_world_size() == 1,
+          f"data-train: the worker's group is "
+          f"{dist.get_backend() if dist.is_initialized() else None} of "
+          f"{dist.get_world_size() if dist.is_initialized() else 0}, want "
+          f"nccl of 1")
+    torch.backends.cuda.matmul.allow_tf32 = False    # as phase 1 sets them
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch_utils.get_device()
+    check(dev == torch.device("cuda:0"), f"data-train: the worker's device "
+                                         f"is {dev}")
+    before = _loaded_formats()
+    _data_gang_lm(session, dev)
+    _data_gang_resnet(session, dev)
+    session.report({"part": "end", "loaded_before": before,
+                    "loaded_after": _loaded_formats(), "t": time.time()})
+
+
+def _driver_data_steps(cfg, tokens, first_images):
+    """The gang's programs in the driver on the same rows: the flagship's
+    losses over the first (1 + GANG_TIMED) batches of ``tokens``, and
+    ResNet-50's first loss on the first image batch."""
+    from ray_tpu_torch.train import (make_lm_train_step,
+                                     make_resnet_train_step)
+    init_fn, step_fn, place = make_lm_train_step(cfg)
+    state = init_fn(torch.Generator(device="cuda").manual_seed(GANG_SEED))
+    losses = []
+    for i in range(1 + GANG_TIMED):
+        rows = tokens[i * DATA_BATCH:(i + 1) * DATA_BATCH]
+        state, m = step_fn(state, place({"tokens": rows}))
+        losses.append(m["loss"].item())
+    del state
+    torch.cuda.empty_cache()
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        init_fn, step_fn, place = make_resnet_train_step(
+            num_classes=1000, image_size=IMAGE_SIZE, learning_rate=0.1)
+        state = init_fn(torch.Generator(device="cuda").manual_seed(0))
+        data = {"image": _resnet_input(torch.from_numpy(np.array(
+                    first_images["image"])).to("cuda")),
+                "label": torch.as_tensor(first_images["label"]).to("cuda")}
+        state, m = step_fn(state, data)
+        resnet_loss = m["loss"].item()
+        del state, data
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    torch.cuda.empty_cache()
+    return losses, resnet_loss
+
+
+def phase_data_train(card, gang):
+    """Phase 29: ``ray_tpu_torch.data`` on a port Cluster that counts the
+    card, feeding ``TorchTrainer(datasets=...)``: the flagship trained from
+    a packed, shuffled text dataset and ResNet-50 from a uint8 image
+    dataset in a one-rank NCCL gang's worker, held to the driver's steps on
+    the same rows. ``gang`` is phase 28's result from this run."""
+    import os
+    import tempfile
+
+    import ray_tpu_torch as rt
+    import ray_tpu_torch.data as rd
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.models import transformer_num_params
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg(remat=True)
+    loaded = _loaded_formats()
+    check(not loaded, f"data-train: {loaded} loaded in the driver before "
+                      f"the phase")
+    apps_before = _compute_apps()
+    c = Cluster(initialize_head=True,
+                head_node_args={"num_cpus": 4, "object_store_bytes": 2 << 30})
+    prefixes = [n.store_prefix for n in c.nodes]
+    try:
+        rt.init(address=c.address)
+        try:
+            res = rt.cluster_resources()
+            check(res.get("GPU") == 1.0 and res.get("CPU") == 4.0,
+                  f"data-train: the head counts {res}, want 1 GPU, 4 CPUs")
+            t0 = time.perf_counter()
+            docs, text_bytes = _corpus(GANG_SEED, DATA_TEXT_BYTES)
+            gen_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            packed = rd.tokenize_and_pack(
+                rd.from_items(docs, parallelism=DATA_BLOCKS),
+                seq_len=cfg.max_seq).random_shuffle(seed=GANG_SEED) \
+                .materialize()
+            pipe_s = time.perf_counter() - t0
+            n_rows = packed.count()
+            in_tokens = text_bytes + 2 * len(docs)   # ASCII: a byte a token
+            print(f"[data-train] corpus: {len(docs)} documents, "
+                  f"{text_bytes} bytes ({gen_s:.2f} s to draw); from_items "
+                  f"(parallelism {DATA_BLOCKS}) -> tokenize_and_pack(seq_len "
+                  f"{cfg.max_seq}) -> random_shuffle(seed {GANG_SEED}) -> "
+                  f"materialize on the cluster's 4 CPU workers: {n_rows} "
+                  f"packed rows in {packed.num_blocks()} blocks, "
+                  f"{pipe_s:.2f} s, {in_tokens / pipe_s:.0f} input tokens/s,"
+                  f" {n_rows * cfg.max_seq / pipe_s:.0f} packed tokens/s",
+                  flush=True)
+            t0 = time.perf_counter()
+            images = rd.range(IMAGE_BLOCKS * IMAGE_BATCH,
+                              parallelism=IMAGE_BLOCKS) \
+                .map_batches(data_images).materialize()
+            images_s = time.perf_counter() - t0
+            image_bytes = images.size_bytes()
+            first = next(images.iter_batches(batch_size=IMAGE_BATCH))
+            check(first["image"].dtype == np.uint8 and
+                  first["image"].shape == (IMAGE_BATCH, IMAGE_SIZE,
+                                           IMAGE_SIZE, 3),
+                  f"data-train: the first image batch is "
+                  f"{first['image'].dtype} {first['image'].shape}")
+            print(f"[data-train] images: range({IMAGE_BLOCKS * IMAGE_BATCH},"
+                  f" parallelism={IMAGE_BLOCKS}).map_batches(data_images): "
+                  f"{images.num_blocks()} blocks, {image_bytes / 1e6:.1f} MB "
+                  f"in {images_s:.2f} s", flush=True)
+            head = np.array(next(packed.iter_batches(   # a writable copy
+                batch_size=(1 + GANG_TIMED) * DATA_BATCH))["tokens"])
+            want, resnet_want = _driver_data_steps(cfg, head, first)
+            del first
+            print(f"[data-train] the driver's steps on the same rows: "
+                  f"flagship losses {want}, ResNet-50 first loss "
+                  f"{resnet_want:.5f}", flush=True)
+            with tempfile.TemporaryDirectory() as tmp:
+                t_fit = time.time()
+                result = TorchTrainer(
+                    data_gang_loop,
+                    datasets={"train": packed, "images": images},
+                    scaling_config=ScalingConfig(num_workers=1),
+                    run_config=RunConfig(storage_path=tmp,
+                                         name="data-train")).fit()
+                fit_s = time.time() - t_fit
+            del packed, images
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    check(result.error is None, f"data-train: the gang failed: "
+                                f"{result.error}")
+    hist = result.metrics_history
+    parts = {p: [m for m in hist if m["part"] == p]
+             for p in ("lm", "drain", "resnet", "end")}
+    check(len(parts["lm"]) == 1 + GANG_TIMED and
+          all(len(parts[p]) == 1 for p in ("drain", "resnet", "end")),
+          f"data-train: reports {[(p, len(v)) for p, v in parts.items()]}")
+    lm, drain = parts["lm"], parts["drain"][0]
+    r, end = parts["resnet"][0], parts["end"][0]
+    losses = [m["loss"] for m in lm]
+    diffs = [abs(a - b) for a, b in zip(losses, want)]
+    gang_ms = [m["step_ms"] for m in lm[1:]]
+    waits = [m["wait_ms"] for m in lm[1:]]
+    step_ms = float(np.mean(gang_ms))
+    launches = tuple(lm[-1]["launches"])
+    want_launches = tuple(GANG_TIMED * n for n in
+                          (2 * cfg.n_layers, cfg.n_layers, cfg.n_layers,
+                           cfg.n_layers))
+    tokens_per_s = DATA_BATCH * cfg.max_seq / (step_ms / 1e3)
+    flops_per_token = 6 * transformer_num_params(cfg) + \
+        12 * cfg.n_layers * cfg.d_model * cfg.max_seq
+    mfu = tokens_per_s * flops_per_token / PEAK_BF16_FLOPS
+    first_report_s = lm[0]["t"] - t_fit
+    print(f"[data-train] flagship in the gang worker from the packed "
+          f"dataset: losses {losses} against the driver's {want}: diffs "
+          f"{[f'{d:.3e}' for d in diffs]}, largest {max(diffs):.3e} (tol "
+          f"{GANG_LOSS_TOL})", flush=True)
+    print(f"[data-train] {GANG_TIMED} timed steps (fetch, copy to the card, "
+          f"step): {[round(x, 2) for x in gang_ms]} ms, mean {step_ms:.2f} "
+          f"ms/step beside phase 28's gang step {gang['step_ms']:.2f} ms "
+          f"(ratio {step_ms / gang['step_ms']:.4f}), {tokens_per_s:.0f} "
+          f"tokens/s, MFU {mfu:.4f}; data wait a step "
+          f"{[round(x, 3) for x in waits]} ms; flash launches (fwd, dkv, "
+          f"dq, delta) {launches} in the worker; peak card memory "
+          f"{lm[-1]['peak_gb']:.2f} GB; fit() to the first report "
+          f"{first_report_s:.1f} s, fit() {fit_s:.1f} s on {card}",
+          flush=True)
+    print(f"[data-train] the feed: the shard's other {drain['rows']} rows "
+          f"through iter_torch_batches and the copy to the card in "
+          f"{drain['seconds']:.3f} s: {drain['rows_per_s']:.0f} rows/s, "
+          f"{drain['mb_per_s']:.1f} MB/s", flush=True)
+    check(all(np.isfinite(losses)) and max(diffs) <= GANG_LOSS_TOL,
+          f"data-train: the gang's losses {losses} against the driver's "
+          f"{want}")
+    check(launches == want_launches,
+          f"data-train: the worker launched {launches} in {GANG_TIMED} "
+          f"steps, want {want_launches}")
+    check(drain["rows"] == n_rows - (1 + GANG_TIMED) * DATA_BATCH -
+          n_rows % DATA_BATCH,
+          f"data-train: drained {drain['rows']} of {n_rows} rows")
+    loss_diff = abs(r["first_loss"] - resnet_want)
+    ratio = r["images_per_s"] / gang["resnet"]["images_per_s"]
+    print(f"[data-train] ResNet-50 in the gang worker from the uint8 "
+          f"dataset (batch {IMAGE_BATCH} at {IMAGE_SIZE}², converted on the "
+          f"card): {RESNET_GANG_TIMED} timed steps after {RESNET_GANG_WARM} "
+          f"warm-up, {r['step_ms']:.2f} ms/step, {r['images_per_s']:.1f} "
+          f"images/s beside phase 28's gang {gang['resnet']['images_per_s']:.1f}"
+          f" (ratio {ratio:.4f}); a step's fetch from the store "
+          f"{[round(x, 2) for x in r['fetch_ms']]} ms and copy to the card "
+          f"{[round(x, 2) for x in r['copy_ms']]} ms (the copy waits for "
+          f"the step before it: a pageable copy is ordered on the stream); "
+          f"with the card idle, a batch's {r['batch_mb']:.1f} MB copied from "
+          f"the store's mapping, host-copied to private memory, and copied "
+          f"from there: {[[round(x, 2) for x in c] for c in r['idle_copies_ms']]}"
+          f" ms; first loss "
+          f"{r['first_loss']:.5f} against the driver's {resnet_want:.5f} "
+          f"(diff {loss_diff:.3e}, tol {RESNET_FIRST_LOSS_TOL}); last "
+          f"{r['last_loss']:.5f}; flash launches {tuple(r['launches'])}",
+          flush=True)
+    check(r["finite"] and loss_diff <= RESNET_FIRST_LOSS_TOL
+          and r["left"] == 0,
+          f"data-train: ResNet first loss {r['first_loss']} (driver "
+          f"{resnet_want}), {r['left']} batches left")
+    check(tuple(r["launches"]) == (0, 0, 0, 0),
+          f"data-train: the ResNet step launched {r['launches']}")
+    after = _loaded_formats()
+    print(f"[data-train] pyarrow, pandas, PIL loaded: driver before "
+          f"{loaded}, after {after}; gang worker before "
+          f"{end['loaded_before']}, after {end['loaded_after']}", flush=True)
+    check(not after and not end["loaded_before"] and
+          not end["loaded_after"],
+          f"data-train: optional formats loaded: driver {after}, worker "
+          f"{end['loaded_after']}")
+    deadline = time.monotonic() + 30
+    left = _session_processes()
+    segs = [f for f in os.listdir("/dev/shm")
+            if any(f.startswith(p) for p in prefixes)]
+    apps = _compute_apps()
+    while (left or segs or len(apps) > len(apps_before)) and \
+            time.monotonic() < deadline:
+        time.sleep(0.2)
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        apps = _compute_apps()
+    during = lm[-1]["contexts"]
+    print(f"[data-train] after shutdown: session processes {left}, "
+          f"segments {segs}, card contexts {len(apps)} (before the phase "
+          f"{len(apps_before)}, with the gang worker {during})", flush=True)
+    check(during > len(apps_before),
+          "data-train: nvidia-smi lists no context for the gang worker")
+    check(not left and not segs and len(apps) <= len(apps_before),
+          f"data-train: left processes {left}, segments {segs}, contexts "
+          f"{apps}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[data-train] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=launches, losses=losses, driver_losses=want,
+                loss_diffs=diffs, step_ms=step_ms,
+                gang_step_ms=gang["step_ms"],
+                ratio=step_ms / gang["step_ms"], tokens_per_s=tokens_per_s,
+                mfu=mfu, wait_ms=waits, first_report_s=first_report_s,
+                fit_s=fit_s, pipeline={
+                    "documents": len(docs), "bytes": text_bytes,
+                    "rows": n_rows, "seconds": pipe_s,
+                    "input_tokens_per_s": in_tokens / pipe_s},
+                feed={k: drain[k] for k in ("rows", "seconds", "rows_per_s",
+                                            "mb_per_s")},
+                resnet={k: r[k] for k in ("step_ms", "images_per_s",
+                                          "first_loss", "last_loss",
+                                          "fetch_ms", "copy_ms",
+                                          "idle_copies_ms")},
+                resnet_driver_first_loss=resnet_want,
+                resnet_gang_images_per_s=gang["resnet"]["images_per_s"],
+                resnet_ratio=ratio, image_mb=image_bytes / 1e6,
+                seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -4609,6 +5085,10 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["trainer-gang"] = phase_trainer_gang(card, runs["resnet_train"])
     print(f"[phase] trainer gang: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["data-train"] = phase_data_train(card, runs["trainer-gang"])
+    print(f"[phase] data train: {time.perf_counter() - t0:.1f} s",
           flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 

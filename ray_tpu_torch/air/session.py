@@ -8,9 +8,7 @@ driver, rank-0 checkpoints persist. Plus rank/world introspection.
 
 Where the port differs from the JAX module: the session also holds the
 worker's device (``"cuda:0"``, the card its lease gave it, or ``"cpu"``),
-which ``train.torch_utils.get_device`` returns; and
-``get_dataset_shard`` raises ``NotImplementedError``: ``data/`` is still
-to port (ROADMAP.md A.6).
+which ``train.torch_utils.get_device`` returns.
 """
 
 from __future__ import annotations
@@ -27,7 +25,8 @@ class _Session:
     def __init__(self, world_rank: int, world_size: int, local_rank: int,
                  trial_dir: str = "", config: Optional[dict] = None,
                  checkpoint: Optional[Checkpoint] = None,
-                 device: str = "cpu"):
+                 device: str = "cpu",
+                 dataset_shards: Optional[Dict[str, Any]] = None):
         self.world_rank = world_rank
         self.world_size = world_size
         self.local_rank = local_rank
@@ -35,6 +34,7 @@ class _Session:
         self.config = config or {}
         self.loaded_checkpoint = checkpoint
         self.device = device
+        self.dataset_shards = dataset_shards or {}
         self.reports = []           # consumed by the worker actor
         self.report_event = threading.Condition()
         self.iteration = 0
@@ -79,11 +79,16 @@ def get_checkpoint() -> Optional[Checkpoint]:
 
 
 def get_dataset_shard(name: str = "train"):
-    """The JAX package's split of a trainer's ``datasets=``; the port has
-    no ``data/`` yet."""
-    raise NotImplementedError(
-        "session.get_dataset_shard: ray_tpu_torch.data is still to port "
-        "(ROADMAP.md A.6)")
+    """This worker's split of the Dataset the trainer was given via
+    ``datasets={name: ds}`` (parity: air/session.py get_dataset_shard —
+    the data->train integration point). Iterate it with iter_batches /
+    iter_torch_batches inside the loop."""
+    shards = _require_session().dataset_shards
+    if name not in shards:
+        raise KeyError(
+            f"no dataset {name!r} was passed to the trainer "
+            f"(have: {sorted(shards)})")
+    return shards[name]
 
 
 def get_world_rank() -> int:

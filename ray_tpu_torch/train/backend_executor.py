@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import socket
 import time
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 from ray_tpu_torch.air.checkpoint import Checkpoint
 from ray_tpu_torch.train.worker_group import WorkerGroup
@@ -167,7 +167,8 @@ class BackendExecutor:
     def run(self, train_loop: Callable, config: dict,
             on_report: Callable[[dict], Any],
             trial_dir: str = "",
-            checkpoint: Optional[Checkpoint] = None) -> List[dict]:
+            checkpoint: Optional[Checkpoint] = None,
+            datasets: Optional[Dict[str, Any]] = None) -> List[dict]:
         """Start the loop on all ranks and pump synchronized reports.
 
         ``on_report`` receives the merged report each round (rank-0 metrics
@@ -176,10 +177,23 @@ class BackendExecutor:
         """
         import ray_tpu_torch as rt
         wg = self.worker_group
+        # Per-rank dataset shards (session.get_dataset_shard): each named
+        # Dataset splits into world_size EQUAL-row pieces — collective-per-
+        # step loops need the same step count on every rank or the gang
+        # deadlocks on the uneven tail (Dataset.split(equal=True) parity).
+        # The splits hold their blocks' refs until this returns.
+        shards_by_rank: List[Optional[dict]] = [None] * len(wg.workers)
+        if datasets:
+            per_name = {name: ds.split(len(wg.workers), equal=True)
+                        for name, ds in datasets.items()}
+            shards_by_rank = [
+                {name: splits[rank] for name, splits in per_name.items()}
+                for rank in range(len(wg.workers))]
         try:
             rt.get([w.start_training.remote(train_loop, config, trial_dir,
-                                            checkpoint)
-                    for w in wg.workers], timeout=600)
+                                            checkpoint,
+                                            dataset_shards=shards_by_rank[i])
+                    for i, w in enumerate(wg.workers)], timeout=600)
         except Exception as e:  # noqa: BLE001 - gang infra failure
             raise TrainingFailedError(f"gang start failed: {e!r}") from e
         history: List[dict] = []

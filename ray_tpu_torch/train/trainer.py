@@ -23,8 +23,9 @@ Where the port differs from the JAX module:
 - The loop goes to the workers by import path, and ``trainer.pkl`` (which
   ``restore`` reads) is written with the port's pickler: a lambda or nested
   loop raises ``TypeError`` at ``fit()`` (ROADMAP.md C).
-- ``datasets=`` raises ``NotImplementedError``: ``data/`` is still to port
-  (ROADMAP.md A.6).
+- ``datasets=`` takes ``ray_tpu_torch.data`` Datasets, split into
+  equal-row shards, one a rank (``session.get_dataset_shard``), as in the
+  JAX package.
 """
 
 from __future__ import annotations
@@ -161,15 +162,14 @@ class DataParallelTrainer(BaseTrainer):
                  resume_from_checkpoint: Optional[Checkpoint] = None,
                  backend: Optional[Backend] = None,
                  datasets: Optional[dict] = None):
-        if datasets:
-            raise NotImplementedError(
-                "datasets=: ray_tpu_torch.data is still to port "
-                "(ROADMAP.md A.6)")
         super().__init__(scaling_config=scaling_config, run_config=run_config,
                          resume_from_checkpoint=resume_from_checkpoint)
         self.train_loop_per_worker = train_loop_per_worker
         self.train_loop_config = train_loop_config or {}
         self.backend = backend or self._backend_cls()
+        # name -> ray_tpu_torch.data.Dataset, split per-rank at fit() and
+        # exposed in workers via session.get_dataset_shard.
+        self.datasets = datasets or {}
 
     def _check_cards(self) -> None:
         """Raise now when the gang cannot have its cards."""
@@ -244,7 +244,8 @@ class DataParallelTrainer(BaseTrainer):
                 executor.run(self.train_loop_per_worker,
                              self.train_loop_config, on_report,
                              trial_dir=trial_dir,
-                             checkpoint=state["last_checkpoint"])
+                             checkpoint=state["last_checkpoint"],
+                             datasets=self.datasets)
                 return Result(metrics=state["last_metrics"],
                               checkpoint=state["last_checkpoint"],
                               metrics_history=state["history"],

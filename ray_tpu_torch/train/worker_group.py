@@ -46,12 +46,13 @@ class RayTrainWorker:
         return fn(*args, **kwargs)
 
     def start_training(self, loop_fn: Callable, config: dict,
-                       trial_dir: str = "", checkpoint=None) -> bool:
+                       trial_dir: str = "", checkpoint=None,
+                       dataset_shards=None) -> bool:
         from ray_tpu_torch.air import session as session_mod
         sess = session_mod._Session(
             self.world_rank, self.world_size, self.local_rank,
             trial_dir=trial_dir, config=config, checkpoint=checkpoint,
-            device=self.device)
+            device=self.device, dataset_shards=dataset_shards)
         self._session = sess
         self._done.clear()
         self._error = None

@@ -232,10 +232,22 @@ def test_session_calls_outside_a_loop_raise_as_in_jax():
 
 
 def test_datasets_raise_until_data_is_ported():
-    with pytest.raises(NotImplementedError, match="A.6"):
-        tsession.get_dataset_shard("train")
-    with pytest.raises(NotImplementedError, match="A.6"):
-        ttrainer.DataParallelTrainer(_report_rank, datasets={"train": [1]})
+    """``data/`` is ported: outside a loop ``get_dataset_shard`` raises as
+    the JAX session does, a session without that name raises the JAX
+    ``KeyError``, and the trainer keeps its ``datasets=``."""
+    from ray_tpu.air import session as jsession
+    for mod in (tsession, jsession):
+        with pytest.raises(RuntimeError, match="No training session"):
+            mod.get_dataset_shard("train")
+        mod._set_session(mod._Session(0, 1, 0, dataset_shards={"a": 1}))
+        try:
+            assert mod.get_dataset_shard("a") == 1
+            with pytest.raises(KeyError, match="no dataset 'train'"):
+                mod.get_dataset_shard("train")
+        finally:
+            mod._set_session(None)
+    t = ttrainer.DataParallelTrainer(_report_rank, datasets={"train": [1]})
+    assert t.datasets == {"train": [1]}
 
 
 def test_as_trainable_is_a_module_level_partial():

@@ -379,6 +379,17 @@ def test_import_walk_covers_the_trainer():
     assert not missing, missing
 
 
+_DATA_MODULES = tuple(f"ray_tpu_torch/data/{m}.py" for m in (
+    "__init__", "block", "dataset", "datasource", "llm", "preprocessors",
+    "shuffle", "stats", "streaming", "tensor_ext", "tfrecord"))
+
+
+def test_import_walk_covers_the_data_library():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _DATA_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -411,7 +422,7 @@ def _fresh(body):
 @pytest.mark.parametrize("module", [
     "ray_tpu_torch.core.runtime_cluster", "ray_tpu_torch.cluster.worker_main",
     "ray_tpu_torch.cluster.worker_zygote", "ray_tpu_torch.train.trainer",
-    "ray_tpu_torch.util.collective"])
+    "ray_tpu_torch.util.collective", "ray_tpu_torch.data"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
@@ -472,3 +483,73 @@ def test_remote_lambda_on_the_cluster_runtime_raises_type_error():
             ray_tpu_torch.remote(nested).remote(1)
     finally:
         core_api._runtime = prev
+
+
+_BLOCKED_FORMATS = """
+for name in ("pyarrow", "pandas", "PIL"):
+    sys.modules[name] = None        # import raises ImportError
+import tempfile
+
+import numpy as np
+
+import ray_tpu_torch as rt
+import ray_tpu_torch.data as rd
+rt.init(num_cpus=2)
+ds = rd.range(64, parallelism=4).map_batches(
+    lambda b: {"id": b["id"] * 2}).random_shuffle(seed=3)
+batches = list(ds.iter_torch_batches(batch_size=16))
+ids = sorted(int(i) for b in batches for i in b["id"])
+print("TORCH", type(batches[0]["id"]).__module__, len(batches),
+      ids == list(range(0, 128, 2)))
+try:
+    rd.read_parquet(tempfile.mkdtemp())
+    print("PARQUET none")
+except ImportError as e:
+    print("PARQUET", "pyarrow" in str(e))
+rt.shutdown()
+print("LOADED", sorted(m for m in ("pyarrow", "pandas", "PIL")
+                       if sys.modules.get(m) is not None))
+"""
+
+
+def test_data_runs_with_pyarrow_pandas_and_pil_blocked():
+    """With pyarrow, pandas and PIL unimportable, ``data`` imports and
+    runs range -> map_batches -> random_shuffle -> iter_torch_batches on
+    the in-process runtime; parquet raises ImportError naming pyarrow."""
+    out = _fresh(_BLOCKED_FORMATS)
+    assert "TORCH torch 4 True" in out, out
+    assert "PARQUET True" in out, out
+    assert "LOADED []" in out and "BAD []" in out, out
+
+
+def test_lambda_data_function_on_the_cluster_runtime_raises_at_the_call():
+    """The cluster runtime ships a data function by import path, so
+    ``map_batches(lambda b: b)`` raises TypeError at the call, before any
+    plan runs; the in-process runtime takes it."""
+    from ray_tpu_torch.core.runtime_cluster import ClusterRuntime
+    from ray_tpu_torch.data import Dataset
+
+    rt_ = ClusterRuntime.__new__(ClusterRuntime)
+    prev = core_api._runtime
+    core_api._runtime = rt_
+    try:
+        ds = Dataset([])
+        with pytest.raises(TypeError, match="<lambda>.*module level"):
+            ds.map_batches(lambda b: b)
+        with pytest.raises(TypeError, match="<lambda>.*module level"):
+            ds.filter(lambda r: True)
+        ds.map_batches(_module_level_batch_fn)
+    finally:
+        core_api._runtime = prev
+    ray_tpu_torch.shutdown()
+    ray_tpu_torch.init(num_cpus=2)
+    try:
+        from ray_tpu_torch import data
+        got = data.range(4).map_batches(lambda b: {"id": b["id"] + 1})
+        assert [r["id"] for r in got.take_all()] == [1, 2, 3, 4]
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def _module_level_batch_fn(batch):
+    return batch
