@@ -312,9 +312,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    pyarrow, pandas and PIL must not be loaded in the driver or the worker.
    Teardown leaves no process, segment or extra card context.
 
+30. Serve on the cluster runtime (``serve`` on a port ``Cluster`` whose
+   head counts the card as ``"GPU": 1``, 4 CPUs): the controller, the HTTP
+   proxy and every replica are worker processes. ``ServeLM``, a
+   module-level deployment with ``ray_actor_options={"num_gpus": 1}``,
+   draws the flagship's weights from seed 24 on its replica's card and
+   serves phase 24's traffic (8 clients x 5 rounds, 1 warm, seed-24
+   prompts of 128 tokens, 256 new tokens) behind the same ``@serve.batch``.
+   Every status must be 200, each prompt in exactly one batch, every
+   answer equal to the driver's direct ``generate`` of its batch with the
+   same weights (their f64 digests equal), and the replica must count
+   ``n_layers`` forward launches a ``generate``. Prints requests/s,
+   tokens/s, p50/p99, the ratio to phase 24's tokens/s, the replica's
+   start seconds (spawn, CUDA, weights) and the card contexts (the driver
+   and the replica: the controller and the proxy hold none). Then
+   ``serve.run(..., compile=True)``: the handle's calls must ride the
+   replica's compiled graph and answer as the classic handle does, and
+   after ``teardown_compiled()`` the classic path answers the same; a
+   module-level CPU ``SmokeDoubler``'s 200 round trips through the classic
+   and the compiled handle, in turns, beside phase 26's ratio. Then the
+   replica calls ``os._exit(1)``: the controller sees it DEAD through the
+   conductor and starts a new GPU replica; the seconds from the kill to
+   the first 200, whose answer must equal the driver's. Teardown leaves
+   no process, segment (store or channel) or extra card context.
+
 No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
 kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-29 print their seconds.
+the PPO learner in phase 23. Phases 17-30 print their seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -333,6 +357,8 @@ import time
 
 import numpy as np
 import torch
+
+from ray_tpu_torch import serve
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -4999,6 +5025,384 @@ def phase_data_train(card, gang):
                 seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 30: serve on the cluster runtime, the flagship in a GPU replica
+# ---------------------------------------------------------------------------
+
+SC_SEED = 24               # phase 24's prompts and weights
+SC_COMPILED_CALLS = 1      # LM calls through each handle
+SC_DOUBLER_CALLS = 200     # round trips a handle, in 4 turns
+SC_RECOVERY_S = 300
+
+
+def _weights_digest(params):
+    """(sum, sum of squares) of every weight, in f64 on its device."""
+    leaves = [v.double() for _, v in _named_leaves(params)]
+    return (torch.stack([t.sum() for t in leaves]).sum().item(),
+            torch.stack([t.square().sum() for t in leaves]).sum().item())
+
+
+@serve.deployment(name="lm", num_replicas=1, route_prefix="/generate",
+                  ray_actor_options={"num_gpus": 1}, init_grace_s=300.0)
+class ServeLM:
+    """Phase 24's deployment in a replica process that leases the card:
+    the flagship's weights drawn on the replica's card from ``seed``, one
+    ``@serve.batch`` method that left-pads the prompts and calls
+    ``generate``, recording each batch."""
+
+    def __init__(self, seed, new):
+        import os
+        import threading
+
+        from ray_tpu_torch.models import transformer_init
+        t_init = time.time()
+        t0 = time.perf_counter()
+        torch.empty(1, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.cfg, self.new = flagship_cfg(), new
+        self.params = transformer_init(
+            torch.Generator(device="cuda").manual_seed(seed), self.cfg)
+        torch.cuda.synchronize()
+        self.start = {"pid": os.getpid(), "t_init": t_init,
+                      "cuda_s": t1 - t0,
+                      "weights_s": time.perf_counter() - t1,
+                      "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+        self.batches = []
+        self.lock = threading.Lock()
+
+    @serve.batch(max_batch_size=HTTP_CLIENTS,
+                 batch_wait_timeout_s=HTTP_BATCH_WAIT_S)
+    def generate_batch(self, prompts):
+        from ray_tpu_torch.models import generate
+        width = max(len(p) for p in prompts)
+        arr = np.zeros((len(prompts), width), np.int64)
+        for i, p in enumerate(prompts):
+            arr[i, width - len(p):] = p
+        with self.lock:
+            self.batches.append(arr)
+            return generate(self.params, torch.from_numpy(arr), self.cfg,
+                            max_new_tokens=self.new).tolist()
+
+    def __call__(self, prompt=None):
+        return {"tokens": self.generate_batch(prompt)}
+
+    def info(self):
+        return self.start
+
+    def recorded(self, reset=False):
+        """(batches, flash launches (fwd, dkv, dq, delta), weight digest);
+        with ``reset`` both start again from nothing."""
+        from ray_tpu_torch.ops import flash
+        with self.lock:
+            out = (self.batches, (flash.launches, flash.bwd_dkv_launches,
+                                  flash.bwd_dq_launches,
+                                  flash.bwd_delta_launches),
+                   _weights_digest(self.params))
+            if reset:
+                self.batches = []
+                _reset_launch_counts()
+        return out
+
+    def die(self):
+        import os
+        os._exit(1)
+
+
+@serve.deployment(name="doubler", num_replicas=1)
+class SmokeDoubler:
+    def __call__(self, x):
+        return x * 2
+
+
+def _direct_mismatches(params, cfg, new, batches, answers, direct=None):
+    """Answers that differ from a direct ``generate`` of their batch (one
+    ``generate`` for each distinct batch, kept in ``direct``)."""
+    from ray_tpu_torch.models import generate
+    bad, direct = 0, {} if direct is None else direct
+    for b in batches:
+        key = (b.shape, b.tobytes())
+        if key not in direct:   # a read-only view of the store: copy it
+            direct[key] = generate(params, torch.from_numpy(np.array(b)),
+                                   cfg, max_new_tokens=new).tolist()
+        bad += sum(answers[tuple(row)] != w
+                   for row, w in zip(b.tolist(), direct[key]))
+    return bad
+
+
+def _until_200(url, prompt, limit_s):
+    """POST ``prompt`` until it answers 200: (body, seconds, failures)."""
+    t0 = time.perf_counter()
+    failures = 0
+    while time.perf_counter() - t0 < limit_s:
+        code, body, _ = _post_json(url, {"prompt": prompt}, timeout=600)
+        if code == 200:
+            return body, time.perf_counter() - t0, failures
+        failures += 1
+        time.sleep(0.25)
+    return None, time.perf_counter() - t0, failures
+
+
+def phase_serve_cluster(card, http_run, cgraph_run):
+    """Phase 30: serve's controller, proxy and replicas in worker
+    processes, the flagship in a ``num_gpus=1`` replica, over HTTP, through
+    the compiled handle, and replaced after its process dies."""
+    import concurrent.futures
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.dag import channel
+    from ray_tpu_torch.models import transformer_init
+    t_phase = time.perf_counter()
+    cfg, prompt_len, new = flagship_cfg(), 128, 256
+    prompts = np.random.default_rng(SC_SEED).integers(
+        0, cfg.vocab_size, (HTTP_ROUNDS, HTTP_CLIENTS, prompt_len)).tolist()
+    params = transformer_init(
+        torch.Generator(device="cuda").manual_seed(SC_SEED), cfg)
+    digest = _weights_digest(params)
+    apps_before = _compute_apps()
+    c = Cluster(initialize_head=True, head_node_args={"num_cpus": 4})
+    prefixes = [n.store_prefix for n in c.nodes]
+    try:
+        rt.init(address=c.address)
+        try:
+            res = rt.cluster_resources()
+            check(res.get("GPU") == 1.0,
+                  f"serve-cluster: the head counts {res.get('GPU')} GPUs")
+            # (a) the flagship over HTTP from the GPU replica
+            t_run, wall_run = time.perf_counter(), time.time()
+            handle = serve.run(ServeLM.bind(SC_SEED, new),
+                               http_host="127.0.0.1")
+            # the CPU deployment of (b) starts while the LM replica does
+            dh = serve.run(SmokeDoubler.bind())
+            start = rt.get(handle.options("info").remote(), timeout=600)
+            start_s = time.perf_counter() - t_run
+            spawn_s = start["t_init"] - wall_run
+            check(start["visible"] == "0" and start["pid"] != os.getpid(),
+                  f"serve-cluster: the replica runs in pid {start['pid']} "
+                  f"with CUDA_VISIBLE_DEVICES={start['visible']!r}")
+            url = f"http://127.0.0.1:{handle.http_port}/generate"
+            answers, latencies, timed_s = {}, [], 0.0
+            with concurrent.futures.ThreadPoolExecutor(HTTP_CLIENTS) as pool:
+                for r in range(HTTP_ROUNDS):
+                    t0 = time.perf_counter()
+                    out = list(pool.map(lambda p: _post_json(
+                        url, {"prompt": p}), prompts[r]))
+                    if r:
+                        timed_s += time.perf_counter() - t0
+                        latencies += [sec for _, _, sec in out]
+                    codes = [code for code, _, _ in out]
+                    check(codes == [200] * HTTP_CLIENTS,
+                          f"serve-cluster round {r}: statuses {codes}")
+                    answers.update({tuple(p): body["tokens"] for p, (
+                        _, body, _) in zip(prompts[r], out)})
+            apps_serving = _compute_apps()
+            batches, launches_a, r_digest = rt.get(
+                handle.options("recorded").remote(True), timeout=120)
+            sizes = [len(b) for b in batches]
+            check(r_digest == digest,
+                  f"serve-cluster: the replica's weights digest {r_digest} "
+                  f"is not the driver's {digest}")
+            check(launches_a == (cfg.n_layers * len(batches), 0, 0, 0),
+                  f"serve-cluster: the replica launched {launches_a} (fwd, "
+                  f"dkv, dq, delta) for {len(batches)} generate calls, want "
+                  f"({cfg.n_layers * len(batches)}, 0, 0, 0)")
+            seen = [tuple(row) for b in batches for row in b.tolist()]
+            check(sorted(seen) == sorted(answers) and len(seen) ==
+                  len(answers) == HTTP_ROUNDS * HTTP_CLIENTS,
+                  "serve-cluster: the batches do not hold each prompt once")
+            bad = _direct_mismatches(params, cfg, new, batches, answers)
+            check(bad == 0, f"serve-cluster: {bad} answers differ from the "
+                  f"driver's direct generate of their batch")
+            check(len(apps_serving) == len(apps_before) + 1,
+                  f"serve-cluster: card contexts while serving "
+                  f"{apps_serving}, want the driver's and the replica's "
+                  f"(before the phase {apps_before})")
+            timed = (HTTP_ROUNDS - 1) * HTTP_CLIENTS
+            rps = timed / timed_s
+            tokens_per_s = rps * new
+            p50, p99 = np.percentile(latencies, [50, 99]).tolist()
+            print(f"[serve-cluster] flagship bf16 from a num_gpus=1 replica "
+                  f"process (pid {start['pid']}, CUDA_VISIBLE_DEVICES "
+                  f"{start['visible']!r}): {HTTP_CLIENTS} clients x "
+                  f"{HTTP_ROUNDS} rounds (1 warm), all 200; {len(sizes)} "
+                  f"generate calls, batch sizes {sizes}; flash launches in "
+                  f"the replica {launches_a}; weights digest equal to the "
+                  f"driver's; every answer equals a direct generate of its "
+                  f"batch", flush=True)
+            print(f"[serve-cluster] timed rounds: {rps:.3f} requests/s, "
+                  f"{tokens_per_s:.1f} generated tokens/s, latency p50 "
+                  f"{p50 * 1e3:.1f} ms p99 {p99 * 1e3:.1f} ms; phase 24 "
+                  f"in-process {http_run['tokens_per_s']:.1f} tokens/s, "
+                  f"ratio {tokens_per_s / http_run['tokens_per_s']:.4f} on "
+                  f"{card}", flush=True)
+            print(f"[serve-cluster] replica start {start_s:.2f} s from "
+                  f"serve.run to its first answer: spawn {spawn_s:.2f} s, "
+                  f"CUDA context {start['cuda_s']:.2f} s, weights "
+                  f"{start['weights_s']:.2f} s; card contexts while serving "
+                  f"{len(apps_serving)} (before the phase "
+                  f"{len(apps_before)})", flush=True)
+
+            # (b) the compiled handle, then a CPU deployment's round trips
+            chandle = serve.run(ServeLM.bind(SC_SEED, new), compile=True)
+            calls = [p for p in prompts[0][:SC_COMPILED_CALLS]]
+            t0 = time.perf_counter()
+            compiled_toks = [
+                rt.get(chandle.remote(p), timeout=600)["tokens"]
+                for p in calls]
+            compiled_s = (time.perf_counter() - t0) / len(calls)
+            executions = sum(cg._next_seq for cg in chandle._cgraphs.values())
+            check(chandle._cgraphs and executions == len(calls),
+                  f"serve-cluster: the compiled path was not taken "
+                  f"({len(chandle._cgraphs)} graphs, {executions} "
+                  f"executions for {len(calls)} calls)")
+            t0 = time.perf_counter()
+            classic_toks = [rt.get(handle.remote(p), timeout=600)["tokens"]
+                            for p in calls]
+            classic_s = (time.perf_counter() - t0) / len(calls)
+            check(compiled_toks == classic_toks,
+                  "serve-cluster: the compiled handle's tokens differ from "
+                  "the classic handle's")
+            chandle.teardown_compiled()
+            after = rt.get(chandle.remote(calls[0]), timeout=600)["tokens"]
+            check(not chandle._cgraphs and after == classic_toks[0],
+                  "serve-cluster: after teardown_compiled() the classic path "
+                  "answers otherwise")
+            batches_b, launches_b, _ = rt.get(
+                handle.options("recorded").remote(True), timeout=120)
+            check(launches_b == (cfg.n_layers * len(batches_b), 0, 0, 0)
+                  and len(batches_b) == 2 * len(calls) + 1,
+                  f"serve-cluster: {len(batches_b)} batches and launches "
+                  f"{launches_b} for the handles' {2 * len(calls) + 1} calls")
+            single = {}   # (c) sends calls[0] alone again
+            bad = _direct_mismatches(
+                params, cfg, new, batches_b,
+                {tuple(p): t for p, t in zip(calls, classic_toks)}, single)
+            check(bad == 0, f"serve-cluster: {bad} handle answers differ "
+                  f"from the driver's direct generate")
+            dch = serve.run(SmokeDoubler.bind(), compile=True)
+            rt.get(dh.remote(0), timeout=60)
+            rt.get(dch.remote(0), timeout=60)
+            turn = SC_DOUBLER_CALLS // 4
+            spent = {"classic": 0.0, "compiled": 0.0}
+            wrong = 0
+            for k in range(4):
+                for label, h in (("classic", dh), ("compiled", dch)):
+                    t0 = time.perf_counter()
+                    got = [rt.get(h.remote(i), timeout=60)
+                           for i in range(k * turn, (k + 1) * turn)]
+                    spent[label] += time.perf_counter() - t0
+                    wrong += sum(g != 2 * i for g, i in zip(
+                        got, range(k * turn, (k + 1) * turn)))
+            d_execs = sum(cg._next_seq for cg in dch._cgraphs.values())
+            check(wrong == 0 and d_execs == SC_DOUBLER_CALLS + 1,
+                  f"serve-cluster: doubler {wrong} wrong answers, "
+                  f"{d_execs} compiled executions")
+            dch.teardown_compiled()
+            serve.delete("doubler")
+            d_rates = {k: SC_DOUBLER_CALLS / v for k, v in spent.items()}
+            d_ratio = d_rates["compiled"] / d_rates["classic"]
+            cg_ratio = cgraph_run["compiled_rps"]["default slot"] / \
+                cgraph_run["classic_rps"]
+            print(f"[serve-cluster] compiled handle: LM calls through the "
+                  f"replica's graph {len(calls)} ({executions} executions), "
+                  f"tokens equal the classic handle's and, after "
+                  f"teardown_compiled(), the classic path's; seconds a call "
+                  f"{compiled_s:.3f} compiled, {classic_s:.3f} classic (each "
+                  f"alone in its @serve.batch window of {HTTP_BATCH_WAIT_S} "
+                  f"s)", flush=True)
+            print(f"[serve-cluster] doubler (CPU replica) {SC_DOUBLER_CALLS} "
+                  f"sequential round trips a handle in 4 turns: classic "
+                  f"{d_rates['classic']:.1f}/s, compiled "
+                  f"{d_rates['compiled']:.1f}/s, compiled/classic "
+                  f"{d_ratio:.3f}; phase 26's graph compiled/classic "
+                  f"{cg_ratio:.3f} on {card}", flush=True)
+
+            # (c) the replica's death
+            t_kill = time.perf_counter()
+            try:
+                rt.get(handle.options("die").remote(), timeout=60)
+            except Exception:
+                pass   # the call dies with the process
+            body, recovery_s, failures = _until_200(url, calls[0],
+                                                    SC_RECOVERY_S)
+            check(body is not None, f"serve-cluster: no 200 within "
+                  f"{SC_RECOVERY_S} s of the replica's death")
+            recovery_s = time.perf_counter() - t_kill
+            start_c = rt.get(handle.options("info").remote(), timeout=120)
+            batches_c, launches_c, digest_c = rt.get(
+                handle.options("recorded").remote(), timeout=120)
+            check(start_c["pid"] != start["pid"] and digest_c == digest
+                  and start_c["visible"] == "0",
+                  f"serve-cluster: the new replica (pid {start_c['pid']}, "
+                  f"old {start['pid']}) has digest {digest_c}")
+            check(launches_c == (cfg.n_layers * len(batches_c), 0, 0, 0),
+                  f"serve-cluster: the new replica launched {launches_c}")
+            bad = _direct_mismatches(params, cfg, new, batches_c,
+                                     {tuple(calls[0]): body["tokens"]},
+                                     single)
+            check(bad == 0, "serve-cluster: the recovered answer differs "
+                  "from the driver's direct generate")
+            apps_after = _compute_apps()
+            deadline = time.monotonic() + 30
+            while len(apps_after) != len(apps_before) + 1 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.2)
+                apps_after = _compute_apps()
+            check(len(apps_after) == len(apps_before) + 1,
+                  f"serve-cluster: card contexts after the recovery "
+                  f"{apps_after} (before the phase {apps_before})")
+            print(f"[serve-cluster] replica death (os._exit in pid "
+                  f"{start['pid']}): first 200 {recovery_s:.2f} s after the "
+                  f"kill ({failures} non-200 answers meanwhile) from the new "
+                  f"replica pid {start_c['pid']} (CUDA context "
+                  f"{start_c['cuda_s']:.2f} s, weights "
+                  f"{start_c['weights_s']:.2f} s); the answer equals the "
+                  f"driver's; card contexts {len(apps_after)}", flush=True)
+        finally:
+            serve.shutdown()
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        rings = channel.leaked_segments(prefixes)
+        apps = _compute_apps()
+        if not (left or segs or rings or len(apps) > len(apps_before)) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    print(f"[serve-cluster] after shutdown: session processes {left}, "
+          f"segments {segs}, channel segments {rings}, card contexts "
+          f"{len(apps)} (before the phase {len(apps_before)})", flush=True)
+    check(not left and not segs and not rings
+          and len(apps) <= len(apps_before),
+          f"serve-cluster: left processes {left}, segments {segs}, rings "
+          f"{rings}, contexts {apps}")
+    del params
+    torch.cuda.empty_cache()
+    launches = tuple(a + b + c_ for a, b, c_ in zip(launches_a, launches_b,
+                                                     launches_c))
+    seconds = time.perf_counter() - t_phase
+    print(f"[serve-cluster] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=launches, batch_sizes=sizes, requests_per_s=rps,
+                tokens_per_s=tokens_per_s, p50_ms=p50 * 1e3,
+                p99_ms=p99 * 1e3,
+                ratio_to_http_serve=tokens_per_s / http_run["tokens_per_s"],
+                start_s=start_s, spawn_s=spawn_s, cuda_s=start["cuda_s"],
+                weights_s=start["weights_s"],
+                contexts_serving=len(apps_serving),
+                contexts_before=len(apps_before),
+                compiled_call_s=compiled_s, classic_call_s=classic_s,
+                doubler_rps=d_rates, doubler_ratio=d_ratio,
+                cgraph_ratio=cg_ratio, recovery_s=recovery_s,
+                recovery_failures=failures, seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -5089,6 +5493,11 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["data-train"] = phase_data_train(card, runs["trainer-gang"])
     print(f"[phase] data train: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["serve-cluster"] = phase_serve_cluster(card, runs["http-serve"],
+                                                runs["compiled-graph"])
+    print(f"[phase] serve cluster: {time.perf_counter() - t0:.1f} s",
           flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 

@@ -9,9 +9,9 @@ and the @ray.remote decorator. The module holds the process-global runtime.
   ``ClusterRuntime(address=None)``): tasks and actors run in worker
   processes, objects live in the node's shm store.
 - ``init()`` and ``init(local_mode=True)`` start the in-process runtime,
-  where the JAX package's ``init()`` starts a head: the port's serve and
-  RL drivers rely on that runtime's callables by reference,
-  ``on_resolved`` and ``actor_dead`` (ROADMAP.md C).
+  where the JAX package's ``init()`` starts a head (ROADMAP.md C). Serve
+  runs on either runtime; the RL drivers still rely on the in-process
+  one's callables by reference (ROADMAP.md A.5(b2)).
 - ``client://`` raises ``NotImplementedError``: the client runtime is
   still to port (ROADMAP.md A.5).
 """

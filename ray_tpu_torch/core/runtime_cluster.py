@@ -105,6 +105,13 @@ class _TaskRecord:
         return n
 
 
+def _run_callback(callback) -> None:
+    try:
+        callback()
+    except Exception:  # noqa: BLE001 - a caller's bug must not stop a reply
+        pass
+
+
 class _GetFailure:
     """Slot marker for a per-ref get() failure; the first one (submission
     order) is re-raised after every slot settles."""
@@ -635,13 +642,7 @@ class _ActorResolver:
                                           actor_id=actor_id,
                                           wait_alive_timeout=timeout)
         req = {"actor_id": actor_id, "info": None, "ev": threading.Event()}
-        with self._cv:
-            self._reqs.append(req)
-            if self._thread is None or not self._thread.is_alive():
-                self._thread = threading.Thread(
-                    target=self._loop, daemon=True, name="actor-resolve")
-                self._thread.start()
-            self._cv.notify_all()
+        self._add(req)
         req["ev"].wait(timeout)
         with self._cv:
             try:
@@ -649,6 +650,21 @@ class _ActorResolver:
             except ValueError:
                 pass
         return req["info"] or {"state": "PENDING"}
+
+    def watch(self, actor_id: bytes, callback) -> None:
+        """Run ``callback()`` from this resolver's thread once the actor is
+        ALIVE or DEAD; no caller waits for it."""
+        self._add({"actor_id": actor_id, "info": None, "ev": None,
+                   "cb": callback})
+
+    def _add(self, req: dict) -> None:
+        with self._cv:
+            self._reqs.append(req)
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True, name="actor-resolve")
+                self._thread.start()
+            self._cv.notify_all()
 
     def stop(self) -> None:
         with self._cv:
@@ -671,13 +687,21 @@ class _ActorResolver:
                 time.sleep(0.2)
                 continue
             by_id = dict(zip(ids, infos))
+            watched = []
             with self._cv:
                 for r in self._reqs:
                     info = by_id.get(r["actor_id"])
                     if info is not None and info.get("state") in (
                             "ALIVE", "DEAD"):
                         r["info"] = info
-                        r["ev"].set()
+                        if r["ev"] is None:
+                            watched.append(r)
+                        else:
+                            r["ev"].set()
+                for r in watched:
+                    self._reqs.remove(r)
+            for r in watched:
+                _run_callback(r["cb"])
 
 
 class _ActorClient:
@@ -994,6 +1018,9 @@ class ClusterRuntime:
         self._reg_failed: Dict[bytes, BaseException] = {}
         self._oid_actor: Dict[bytes, bytes] = {}
         self._lock = threading.Lock()
+        # on_resolved: return key -> callbacks awaiting its task's reply
+        self._resolved_cbs: Dict[bytes, list] = {}
+        self._cb_lock = threading.Lock()
         self.address = self.conductor_address
         # Install the distributed refcount tracker (reference_count.h:61):
         # from here on every ObjectRef created/dropped in this process
@@ -1150,7 +1177,31 @@ class ClusterRuntime:
                 pass
             # Wake getters parked on a push reply that will never come;
             # they re-read and find the error in the store.
-            self.plane.resolve_pending(self.plane._key(oid))
+            key = self.plane._key(oid)
+            self.plane.resolve_pending(key)
+            self._fire_resolved(key)
+
+    def on_resolved(self, ref: ObjectRef, callback) -> None:
+        """Call ``callback()`` once ``ref``'s task has finished, with a
+        value or an error (a task error, a dead actor, a cancel): at once
+        if its reply is no longer awaited, else from the thread that
+        completes it, which may be an RPC reader thread, so the callback
+        must not block. The serve handle counts its calls in flight with
+        it."""
+        key = self.plane._key(ref.id)
+        with self._cb_lock:
+            if self.plane.is_pending(key):
+                self._resolved_cbs.setdefault(key, []).append(callback)
+                return
+        _run_callback(callback)
+
+    def _fire_resolved(self, key: bytes) -> None:
+        """Run the ``on_resolved`` callbacks of ``key``; its pending mark
+        is cleared first, so a callback registered later runs at once."""
+        with self._cb_lock:
+            cbs = self._resolved_cbs.pop(key, ())
+        for cb in cbs:
+            _run_callback(cb)
 
     def _seed_returns(self, task: dict, entries: Optional[list],
                       node_id: Optional[bytes]) -> None:
@@ -1176,6 +1227,7 @@ class ClusterRuntime:
                 self.plane.seed_inline(key, data, producer_node=node_id)
             else:
                 self.plane.resolve_pending(key)
+            self._fire_resolved(key)
 
     def _prewait(self, refs: List[ObjectRef], deadline: Optional[float],
                  budget_s: float = 4.0) -> None:
@@ -1564,7 +1616,8 @@ class ClusterRuntime:
                      is_async: bool) -> ActorHandle:
         blob = self._function_blob(desc, cls)
         actor_id = ActorID.from_random()
-        args_blob = serialization.dumps((list(args), dict(kwargs)))
+        args_blob, arg_refs = serialization.dumps_with_refs(
+            (list(args), dict(kwargs)))
         resources = {"CPU": opts.num_cpus, "GPU": opts.num_gpus,
                      **opts.resources}
         resources = {k: v for k, v in resources.items() if v > 0}
@@ -1606,6 +1659,14 @@ class ClusterRuntime:
                 "class_name": desc.repr_name(),
                 "max_task_retries": opts.max_task_retries,
             }
+        if arg_refs:
+            # The constructor's ref args stay pinned until the actor has
+            # started (its __init__ has them) or died: the caller may drop
+            # its refs at once, and a freed arg leaves __init__ waiting
+            # for an object that is gone.
+            pins = {"pin_keys": self._pin_arg_refs(arg_refs)}
+            self._actor_resolver.watch(actor_id.binary(),
+                                       lambda: self._unpin_task(pins))
         return ActorHandle(actor_id, desc.repr_name(), methods, is_async)
 
     def _enqueue_registration(self, actor_id: bytes, spec: dict) -> None:

@@ -152,13 +152,18 @@ def _reduce_by_path(obj):
 
 
 def _unwrap(obj):
-    """The function or class behind an ``@remote`` wrapper."""
+    """The function or class behind an ``@remote`` wrapper or a serve
+    ``@deployment``. A ``Deployment`` can exist only once its module is
+    loaded, so ``core`` never imports ``serve`` for this."""
     from ray_tpu_torch.core.actor import ActorClass
     from ray_tpu_torch.core.remote_function import RemoteFunction
     if isinstance(obj, RemoteFunction):
         return obj._fn
     if isinstance(obj, ActorClass):
         return obj._cls
+    serve_api = sys.modules.get("ray_tpu_torch.serve.api")
+    if serve_api is not None and isinstance(obj, serve_api.Deployment):
+        return obj._target
     return obj
 
 

@@ -1,4 +1,4 @@
-"""ray_tpu_torch.serve — model serving on the port's in-process runtime.
+"""ray_tpu_torch.serve — model serving on either of the port's runtimes.
 Ported from ``ray_tpu/serve/``.
 
 Parity surface: reference python/ray/serve — ServeController singleton
@@ -8,10 +8,15 @@ queue-aware handle routing (_private/router.py:263), dynamic request
 batching (@serve.batch), deployment autoscaling
 (_private/autoscaling_policy.py).
 
-A deployment replica can hold a card (``num_gpus`` in
-``ray_actor_options``) and @serve.batch turns concurrent requests into one
-batched forward on it. Serve itself holds no tensor and takes no device:
-the deployment's model does.
+On the cluster runtime (``init(address=...)``) the controller, the HTTP
+proxy and every replica are worker processes, as in the JAX package, and
+a deployment must be defined at module level (it ships by import path);
+on the in-process runtime they are actors of this process. A deployment
+replica can hold a card (``num_gpus`` in ``ray_actor_options``) and
+@serve.batch turns concurrent requests into one batched forward on it.
+``serve.run(..., compile=True)`` sends the returned handle's calls through
+a compiled graph on each replica's worker. Serve itself holds no tensor
+and takes no device: the deployment's model does.
 
 Ingress hardening: the proxy sheds past per-deployment queue budgets
 (503 + Retry-After), admitted requests carry a deadline (504 with the

@@ -8,23 +8,31 @@ replica with fewest in-flight), hardened with dead-replica eviction and
 one retry on a different replica (parity: router's
 ActorReplicaWrapper failure handling + request retries).
 
+Serve runs on both of the port's runtimes. On a ``ClusterRuntime``
+(``init(address=...)``) the controller, the HTTP proxy and every replica
+are worker processes, as in the JAX package; ``run(..., compile=True)``
+gives the compiled handle, whose requests ride a compiled one-step graph
+(``dag/``) on each replica's worker, and falls back to the task path when
+compiling fails or a request's error has poisoned the graph. On the
+in-process runtime nothing compiles, so that handle uses the task path.
+
 Where the port differs from the JAX module (ROADMAP.md C):
-- Deployment targets, init args and request args go to the controller and
-  the replicas by reference (no ``cloudpickle``).
-- ``run(..., compile=True)`` raises ``NotImplementedError``: the JAX
-  handle's compiled path runs each replica's method as a compiled graph
-  (``dag/``) on the replica's actor worker, and the port's replicas are not
-  worker processes yet (ROADMAP.md A.5(b)).
-- No ring events (A.5(b)). The handle's lock is lockcheck's named lock
-  ``serve.handle``, as in the JAX module.
+- The deployment's target and init args go to the controller as one blob
+  of the port's pickler on a cluster (a function or class by import path,
+  so one defined inside another raises ``TypeError`` at ``serve.run``),
+  and by reference on the in-process runtime. Request args go as the
+  actor call's own args, through the same pickler, where the JAX handle
+  cloudpickles them.
 - ``@serve.batch`` keeps one queue per replica instance (and one for a
   plain function), where the JAX module keeps one per process, which its
   in-process runtime shares between the replicas of a deployment.
-- A handle counts a call as finished through a callback from the
-  runtime's object table (``LocalRuntime.on_resolved``), where the JAX
-  handle starts a thread that polls ``rt.wait``: on the card, that poller
-  took the GIL from the replica's host-bound decode loop (PERF.md §6;
-  ``chip_serve_probe.py`` measures it).
+- A handle counts a task-path call as finished through the runtime's
+  ``on_resolved`` callback, where the JAX handle starts a thread that
+  polls ``rt.wait``: on the card, that poller took the GIL from the
+  replica's host-bound decode loop (PERF.md §6; ``chip_serve_probe.py``
+  measures it). A compiled call counts as in flight while its graph holds
+  it (executed, not yet read). The handle's lock is lockcheck's named
+  lock ``serve.handle``, as in the JAX module.
 """
 
 from __future__ import annotations
@@ -35,16 +43,18 @@ import random
 import threading
 import time
 import uuid
+import weakref
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import config
 from ray_tpu_torch.core import api as core_api
+from ray_tpu_torch.core import serialization
 from ray_tpu_torch.core.exceptions import (ActorError, GetTimeoutError,
                                            ObjectLostError,
                                            WorkerCrashedError)
 from ray_tpu_torch.core.refs import ChannelResolvedRef
 from ray_tpu_torch.serve.controller import ReplicaBusyError, ServeController
-from ray_tpu_torch.util import lockcheck
+from ray_tpu_torch.util import events, lockcheck
 
 
 def _get_controller(create: bool = True):
@@ -73,6 +83,18 @@ def _retryable(exc: BaseException) -> bool:
         exc = getattr(exc, "cause", None)
         seen += 1
     return False
+
+
+def _emit(kind: str, ident: str, value: float = 1.0, **attrs) -> None:
+    try:
+        events.emit(kind, ident, value=value, attrs=attrs or None)
+    except Exception:
+        pass   # the flight recorder never fails a request
+
+
+def _in_process() -> bool:
+    """True on the in-process runtime, which has no conductor."""
+    return getattr(core_api._global_runtime(), "conductor", None) is None
 
 
 class ServeCallRef(ChannelResolvedRef):
@@ -110,6 +132,7 @@ class ServeCallRef(ChannelResolvedRef):
                     core_api.cancel(self._inner)
                 except Exception:
                     pass   # the runtime is gone: nothing left to cancel
+                _emit("serve.timeout", self._handle.name)
                 raise
             except Exception as e:  # noqa: BLE001
                 if self._retried or not _retryable(e):
@@ -122,6 +145,7 @@ class ServeCallRef(ChannelResolvedRef):
                     wait_s=min(wait_s, 30.0))
                 if inner is None:
                     raise
+                _emit("serve.retry", self._handle.name)
                 self._inner = inner
                 self._key = None  # key travels with the new submission
 
@@ -150,9 +174,19 @@ class DeploymentHandle:
         # quarantine.
         self._suspects: Dict[Any, int] = {}
         self._closed = False
+        # Opt-in compiled fast path (serve.run(..., compile=True)): one
+        # compiled one-step graph per replica; requests ride a persistent
+        # shm channel instead of a task submission per call.
+        self._compile = False
+        self._cgraphs: Dict[Any, Any] = {}
 
     def options(self, method_name: str) -> "DeploymentHandle":
         return DeploymentHandle(self.name, method_name)
+
+    def __reduce__(self):
+        # Handles travel into replica __init__ args (deployment graphs):
+        # the receiving process builds a fresh one (locks do not ship).
+        return (DeploymentHandle, (self.name, self.method))
 
     def _refresh(self, force: bool = False):
         with self._lock:
@@ -172,15 +206,19 @@ class DeploymentHandle:
             self._replicas = [r for r in routing["replicas"]
                               if r._rt_actor_id not in self._suspects]
             self._max_ongoing = routing["max_ongoing"]
+            dead_graphs = []
             if gen != self._generation:
                 # Membership changed: drop in-flight book entries for
                 # replicas that left (DRAINING/dead) so p2c never favors a
-                # ghost.
+                # ghost, and tear down any compiled graph pinned to one.
                 self._generation = gen
                 live = {r._rt_actor_id for r in self._replicas}
                 for k in [k for k in self._inflight if k not in live]:
                     self._inflight.pop(k, None)
+                dead_graphs = [self._cgraphs.pop(k) for k in
+                               list(self._cgraphs) if k not in live]
             self._ts = time.monotonic()
+        _teardown(*dead_graphs)
 
     def _evict(self, key) -> None:
         """Forget a replica that failed a submission mid-window — the
@@ -191,7 +229,15 @@ class DeploymentHandle:
                               if r._rt_actor_id != key]
             self._suspects[key] = self._generation
             self._inflight.pop(key, None)
+            cg = self._cgraphs.pop(key, None)
             self._ts = 0.0   # next pick re-fetches the routing table
+        _teardown(cg)
+
+    def _load(self, key) -> int:
+        """Calls in flight on a replica: task-path calls not finished yet
+        plus compiled executions its graph holds. Caller holds the lock."""
+        cg = self._cgraphs.get(key)
+        return self._inflight.get(key, 0) + (cg._inflight if cg else 0)
 
     def _pick(self, exclude=frozenset(), enforce_cap: bool = False):
         """Power-of-two-choices on locally tracked in-flight counts."""
@@ -202,8 +248,7 @@ class DeploymentHandle:
             if enforce_cap and self._max_ongoing > 0:
                 candidates = [
                     r for r in candidates
-                    if self._inflight.get(r._rt_actor_id, 0) <
-                    self._max_ongoing]
+                    if self._load(r._rt_actor_id) < self._max_ongoing]
         if not candidates:
             if not self._replicas:
                 raise RuntimeError(
@@ -214,8 +259,8 @@ class DeploymentHandle:
             return candidates[0]
         a, b = random.sample(candidates, 2)
         with self._lock:
-            return a if self._inflight.get(a._rt_actor_id, 0) <= \
-                self._inflight.get(b._rt_actor_id, 0) else b
+            return a if self._load(a._rt_actor_id) <= \
+                self._load(b._rt_actor_id) else b
 
     def _submit(self, replica, call: tuple):
         key = replica._rt_actor_id
@@ -260,6 +305,10 @@ class DeploymentHandle:
     def remote(self, *args, **kwargs):
         replica = self._pick()
         call = (args, kwargs)
+        if self._compile:
+            ref = self._remote_compiled(replica, call)
+            if ref is not None:
+                return ref
         ref, key = self._submit(replica, call)
         return ServeCallRef(self, ref, key, self.method, call)
 
@@ -285,10 +334,59 @@ class DeploymentHandle:
         sref = ServeCallRef(self, ref, key, self.method, call)
         return sref._resolve(max(0.0, deadline - time.monotonic()))
 
+    def _remote_compiled(self, replica, call: tuple):
+        """Submit through the replica's compiled graph; None means the
+        caller should fall back to the classic task path (compile failed,
+        or a prior request's exception poisoned the graph — that failed
+        request still raises its own error at get())."""
+        key = replica._rt_actor_id
+        try:
+            with self._lock:
+                cg = self._cgraphs.get(key)
+            if cg is None:
+                from ray_tpu_torch.dag.compiled import compile_actor_method
+                cg = compile_actor_method(
+                    replica, "handle_request", const_args=(self.method,),
+                    max_in_flight=8)
+                with self._lock:
+                    self._cgraphs[key] = cg
+                    _compiled_handles.add(self)
+            return cg.execute(call)
+        except Exception:
+            with self._lock:
+                cg = self._cgraphs.pop(key, None)
+            _teardown(cg)
+            return None
+
+    def teardown_compiled(self) -> None:
+        """Tear down this handle's compiled replica graphs (restores the
+        replicas to classic task service; safe to call repeatedly)."""
+        with self._lock:
+            graphs, self._cgraphs = list(self._cgraphs.values()), {}
+            self._compile = False
+        _teardown(*graphs)
+
     def close(self) -> None:
-        """Mark the handle closed: the proxy's cache makes a fresh one.
-        serve.shutdown() closes the cached ones."""
+        """Drop the compiled graphs and mark the handle closed: the
+        proxy's cache makes a fresh one. serve.shutdown() closes the
+        cached ones."""
+        self.teardown_compiled()
         self._closed = True
+
+
+def _teardown(*graphs) -> None:
+    for cg in graphs:
+        if cg is None:
+            continue
+        try:
+            cg.teardown()
+        except Exception:
+            pass   # a dead replica's loop is gone with its worker
+
+
+# Handles that compiled a replica graph: serve.shutdown() tears them down
+# before the replicas die.
+_compiled_handles: "weakref.WeakSet" = weakref.WeakSet()
 
 
 class Deployment:
@@ -340,11 +438,15 @@ class Deployment:
         return Application(d)
 
     def deploy(self, *init_args, **init_kwargs) -> DeploymentHandle:
+        payload = (self._target, (init_args, init_kwargs))
+        if not _in_process():
+            # By value for the replicas' processes, pickled here so that a
+            # target that cannot ship raises in the caller's process.
+            payload = serialization.dumps(payload)
         controller = _get_controller()
         core_api.get(controller.deploy.remote(
-            self.name, self._target, (init_args, init_kwargs),
-            self.num_replicas, self.ray_actor_options, self.user_config,
-            self.route_prefix, self.max_concurrent_queries,
+            self.name, payload, self.num_replicas, self.ray_actor_options,
+            self.user_config, self.route_prefix, self.max_concurrent_queries,
             self.autoscaling_config, self.init_grace_s,
             self.max_ongoing_requests), timeout=300)
         return DeploymentHandle(self.name)
@@ -398,15 +500,15 @@ def run(app, *, http_host: Optional[str] = None,
         http_port: int = 0, compile: bool = False) -> DeploymentHandle:
     """Deploy an Application (parity: serve.run), including DAGs built
     with nested ``.bind()`` calls; with ``http_host`` also start the HTTP
-    proxy (its port is the returned handle's ``http_port``)."""
-    if compile:
-        raise NotImplementedError(
-            "serve.run(compile=True): a compiled handle runs on replicas in "
-            "worker processes, which the port's serve does not have yet "
-            "(ROADMAP.md A.5(b)); call serve.run without compile")
+    proxy (its port is the returned handle's ``http_port``).
+    ``compile=True`` routes the RETURNED handle's requests over compiled
+    execution graphs (dag/compiled.py): per-replica persistent shm
+    channels instead of a task submission per request. Handles nested
+    inside the graph stay on the classic path."""
     if isinstance(app, Deployment):
         app = app.bind()
     handle = _deploy_graph(app)
+    handle._compile = bool(compile)
     if http_host is not None:
         controller = _get_controller()
         port = core_api.get(
@@ -456,13 +558,13 @@ def delete(name: str) -> None:
 
 
 def shutdown() -> None:
-    """Delete every deployment (replicas drain, then die), close the HTTP
-    proxy and the proxy's handles, and kill the controller. The runtime
-    stays up."""
+    """Tear down every compiled replica graph, delete every deployment
+    (replicas drain, then die), close the HTTP proxy and the proxy's
+    handles, and kill the controller. The runtime stays up."""
     with _handles_lock:
         stale = list(_handles.values())
         _handles.clear()
-    for h in stale:
+    for h in stale + list(_compiled_handles):
         h.close()
     if not core_api.is_initialized():
         return
@@ -507,8 +609,8 @@ def _adapt_window(st: dict, target_p99_ms: float, base_window_s: float,
     (bigger batches amortize one forward over more requests), halve it the
     moment p99 breaches (latency recovers within a flush or two). Bounds
     keep a misconfigured target from freezing (window->0 busy-flush) or
-    stalling (window >> SLO) the pipeline. ``batch_size`` is the flushed
-    batch's size (the JAX module emits it in a ring event)."""
+    stalling (window >> SLO) the pipeline. The flush's size, window and
+    p99 go to the ring as ``serve.batch.flush``."""
     lat = sorted(st["lat"])
     if not lat:
         return
@@ -518,6 +620,8 @@ def _adapt_window(st: dict, target_p99_ms: float, base_window_s: float,
         st["window"] = max(lo, st["window"] * 0.5)
     elif p99_ms < 0.8 * target_p99_ms:
         st["window"] = min(hi, st["window"] * 1.25)
+    _emit("serve.batch.flush", "batch", value=float(batch_size),
+          window_ms=st["window"] * 1000.0, p99_ms=p99_ms)
 
 
 def batch(_fn=None, *, max_batch_size: int = 8,

@@ -8,37 +8,46 @@ user callable, per-replica in-flight cap), _private/router.py:263
 (queue-length-aware replica choice over a generation-stamped replica
 list), _private/autoscaling_policy.py (replicas from in-flight load).
 
+On a ``ClusterRuntime`` the controller is a detached actor's worker
+process, and so is every replica: as in the JAX module, liveness comes
+from the conductor's actor table (``get_actor_info``) and load from the
+replicas' ``rt_serve_replica_ongoing`` gauges in the conductor's metrics
+KV, with the replicas' ``queue_len`` as the fallback before a replica has
+shipped one. The fault-plane sites ``serve.replica.call`` and
+``serve.replica.drain`` fire, and a drain emits ``serve.drain``.
+
 Where the port differs from the JAX module (ROADMAP.md C):
-- A replica takes the deployment's class or function, its init args and
-  each request's args by reference: the in-process runtime pickles
-  nothing, so no ``cloudpickle`` blob is made.
-- No fault-plane sites, ring events or occupancy gauge: the modules
-  came with the cluster runtime (``cluster/fault_plane.py``,
-  ``util/events.py``, ``util/metrics.py``), but serve's replicas are not
-  worker processes yet (ROADMAP.md A.5(b)). The controller's two locks are
-  lockcheck's named locks ``serve.controller`` and ``serve.reconcile``,
-  as in the JAX module.
-- Liveness comes from the runtime's own actor state and load from the
-  replicas' ``queue_len``, where the JAX controller reads the conductor's
-  actor table and metrics KV.
+- A replica takes the deployment's class or function and its init args as
+  one payload: a blob of the port's pickler on a cluster, which only the
+  replica loads (the controller never imports the user's module), and the
+  objects themselves on the in-process runtime. Request args come as the
+  actor call's own args.
+- On the in-process runtime liveness and load come from the runtime's own
+  actor state and the replicas' ``queue_len``, and a replica sets no
+  gauge (there is no conductor to ship it to).
 - ``ray_actor_options`` take ``num_gpus`` for ``num_tpus``.
 - ``graceful_shutdown`` closes the HTTP proxy (joining its threads) before
   killing it, and joins the reconciler thread, which also stops once the
-  runtime that started it is shut down.
+  runtime that started it is shut down. The controller's two locks are
+  lockcheck's named locks ``serve.controller`` and ``serve.reconcile``,
+  as in the JAX module.
 """
 
 from __future__ import annotations
 
 import asyncio
 import inspect
+import pickle
 import threading
 import time
 from typing import Any, Dict, List, Optional
 
 from ray_tpu_torch import config
+from ray_tpu_torch.cluster import fault_plane
 from ray_tpu_torch.core import api as core_api
+from ray_tpu_torch.core import serialization
 from ray_tpu_torch.core.exceptions import GetTimeoutError
-from ray_tpu_torch.util import lockcheck
+from ray_tpu_torch.util import events, lockcheck
 
 
 class ReplicaBusyError(Exception):
@@ -49,9 +58,11 @@ class ReplicaBusyError(Exception):
 class Replica:
     """Actor wrapping one instance of the user's deployment callable."""
 
-    def __init__(self, target, init_args: tuple, deployment: str = "",
+    def __init__(self, payload, deployment: str = "",
                  max_ongoing: int = 0):
-        args, kwargs = init_args
+        if isinstance(payload, bytes):
+            payload = serialization.loads(payload)
+        target, (args, kwargs) = payload
         if isinstance(target, type):
             self.callable = target(*args, **kwargs)
         else:
@@ -60,10 +71,25 @@ class Replica:
         self._deployment = deployment
         self._max_ongoing = int(max_ongoing)
         self._inflight_lock = threading.Lock()
+        # Per-deployment occupancy gauge: ships to the conductor's metrics
+        # KV with this process's snapshot, where the controller's
+        # autoscaler reads it (no queue_len RPC fan-out on the hot path).
+        self._gauge = None
+        if getattr(core_api._global_runtime(), "conductor", None) is not None:
+            from ray_tpu_torch.util import metrics as m
+            self._gauge = m.builtin(m.Gauge, "rt_serve_replica_ongoing",
+                                    tag_keys=("deployment",))
+
+    def _set_gauge(self) -> None:
+        if self._gauge is not None:
+            self._gauge.set(float(self._inflight),
+                            tags={"deployment": self._deployment})
 
     def handle_request(self, method: str, call: tuple):
         """Run ``method`` of the deployment on ``call``, an (args, kwargs)
         pair."""
+        fault_plane.fire("serve.replica.call", deployment=self._deployment,
+                         method=method)
         with self._inflight_lock:
             if self._max_ongoing and self._inflight >= self._max_ongoing:
                 # Reject past the cap instead of queueing: the handle sees
@@ -74,6 +100,7 @@ class Replica:
                     f"replica of {self._deployment!r} at in-flight cap "
                     f"({self._max_ongoing})")
             self._inflight += 1
+        self._set_gauge()
         args, kwargs = call
         try:
             fn = self.callable if method == "__call__" else \
@@ -93,6 +120,7 @@ class Replica:
         finally:
             with self._inflight_lock:
                 self._inflight -= 1
+            self._set_gauge()
 
     def queue_len(self) -> int:
         return self._inflight
@@ -134,6 +162,8 @@ class ServeController:
         # the controller actor itself runs with max_concurrency > 1)
         self._reconcile_lock = lockcheck.named_lock("serve.reconcile")
         self._runtime = core_api._global_runtime()
+        # The conductor's client on a ClusterRuntime, None in-process.
+        self._conductor = getattr(self._runtime, "conductor", None)
         self._stop = threading.Event()
         self.http_port = http_port
         self.http_actor = None
@@ -143,8 +173,8 @@ class ServeController:
         self._reconciler.start()
 
     # -- deployment management ------------------------------------------
-    def deploy(self, name: str, target, init_args: tuple,
-               num_replicas: int, ray_actor_options: dict,
+    def deploy(self, name: str, payload, num_replicas: int,
+               ray_actor_options: dict,
                user_config=None, route_prefix: Optional[str] = None,
                max_concurrent_queries: int = 100,
                autoscaling: Optional[dict] = None,
@@ -152,7 +182,7 @@ class ServeController:
                max_ongoing_requests: int = 0) -> bool:
         with self._lock:
             self.deployments[name] = {
-                "name": name, "target": target, "init_args": init_args,
+                "name": name, "payload": payload,
                 "num_replicas": num_replicas,
                 "ray_actor_options": ray_actor_options or {},
                 "user_config": user_config,
@@ -191,6 +221,17 @@ class ServeController:
         return True
 
     def _start_drain(self, name: str, handle) -> None:
+        try:
+            fault_plane.fire("serve.replica.drain", deployment=name)
+        except Exception:
+            # An injected drain fault degrades to an immediate kill — the
+            # replica must still leave the cluster.
+            self._kill_replica(handle)
+            return
+        try:
+            events.emit("serve.drain", name)
+        except Exception:
+            pass   # the flight recorder never stops a drain
         self._draining.setdefault(name, []).append({
             "handle": handle,
             "deadline": time.time() + float(
@@ -235,10 +276,18 @@ class ServeController:
         self._replica_ready.discard(handle._rt_actor_id)
 
     def _actor_dead(self, handle) -> bool:
-        """Authoritative liveness from the runtime's actor state — a
-        replica that is DEAD must be replaced immediately even inside the
-        init-grace window (a stuck ping is ambiguous; DEAD is not)."""
-        return self._runtime.actor_dead(handle._rt_actor_id)
+        """Authoritative liveness from the conductor's actor table (the
+        in-process runtime's actor state) — a replica that is DEAD must be
+        replaced immediately even inside the init-grace window (a stuck
+        ping is ambiguous; DEAD is not)."""
+        if self._conductor is None:
+            return self._runtime.actor_dead(handle._rt_actor_id)
+        try:
+            info = self._conductor.call(
+                "get_actor_info", actor_id=handle._rt_actor_id.binary())
+            return (info or {}).get("state") == "DEAD"
+        except Exception:
+            return False
 
     def _spawn_replica(self, spec: dict):
         opts = dict(spec["ray_actor_options"])
@@ -253,8 +302,7 @@ class ServeController:
             # would queue the probe call behind the work it should shed).
             max_concurrency=max(spec["max_concurrent_queries"],
                                 max_ongoing + 2),
-        ).remote(spec["target"], spec["init_args"], spec["name"],
-                 max_ongoing)
+        ).remote(spec["payload"], spec["name"], max_ongoing)
         self._replica_started[handle._rt_actor_id] = time.time()
         if spec.get("user_config") is not None:
             # The reconfigure wait covers __init__ too, so its deadline is
@@ -342,10 +390,35 @@ class ServeController:
                 pass   # the next tick retries; a dead replica is replaced
 
     # -- autoscaling ------------------------------------------------------
+    def _metrics_ongoing(self, name: str) -> Optional[float]:
+        """Total in-flight requests for a deployment, summed from the
+        replica-shipped ``rt_serve_replica_ongoing`` gauges in the
+        conductor metrics KV. None in-process, or when no replica has
+        shipped a snapshot yet — the caller falls back to RPC polling."""
+        if self._conductor is None:
+            return None
+        try:
+            total, found = 0.0, False
+            for key in self._conductor.call("kv_keys", ns="metrics"):
+                blob = self._conductor.call("kv_get", ns="metrics", key=key)
+                if blob is None:
+                    continue
+                entry = pickle.loads(blob).get("rt_serve_replica_ongoing")
+                if not entry:
+                    continue
+                for tags, value in entry["points"]:
+                    if dict(tags).get("deployment") == name:
+                        total += value
+                        found = True
+            return total if found else None
+        except Exception:
+            return None
+
     def _autoscale(self) -> None:
         """Queue-length autoscaling (parity: autoscaling_policy.py — scale
-        to total_ongoing / target_ongoing_requests, clamped). Load is the
-        sum of the replicas' ``queue_len``."""
+        to total_ongoing / target_ongoing_requests, clamped). Load comes
+        from the metrics registry the replicas ship to; the queue_len RPC
+        fan-out remains as the fallback."""
         with self._lock:
             specs = dict(self.deployments)
         for name, spec in specs.items():
@@ -355,11 +428,14 @@ class ServeController:
             replicas = self.replicas.get(name, [])
             if not replicas:
                 continue
-            try:
-                total = sum(core_api.get(
-                    [r.queue_len.remote() for r in replicas], timeout=15))
-            except Exception:
-                continue
+            total = self._metrics_ongoing(name)
+            if total is None:
+                try:
+                    total = sum(core_api.get(
+                        [r.queue_len.remote() for r in replicas],
+                        timeout=15))
+                except Exception:
+                    continue
             target_ongoing = cfg.get("target_num_ongoing_requests", 2)
             desired = max(cfg.get("min_replicas", 1),
                           min(cfg.get("max_replicas", 10),

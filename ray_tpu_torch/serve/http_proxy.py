@@ -17,11 +17,17 @@ serve_max_ongoing_requests). Past the queue budget requests shed with
 carry a deadline (serve_request_timeout_s) and time out with 504, the
 in-flight call cancelled rather than leaked.
 
-Where the port differs from the JAX module: no fault-plane admission
-site, ring events or probe (ROADMAP.md A.5(b)). ``close`` stops the
-listener, cancels the open connections and joins the loop thread and both
-executors, so no thread of a closed proxy is left; the JAX proxy lives in
-its own process and leaves that to the process's end.
+The fault plane's ``serve.proxy.admit`` site fires before admission (a
+raised fault sheds with 503), every answered request emits
+``serve.request`` (a 503 also ``serve.shed``, a capacity wait past the
+deadline ``serve.timeout``), and the ``serve.proxy`` probe samples the
+queued and ongoing counts at each ring flush. On a cluster the proxy is a
+worker process, as in the JAX package.
+
+Where the port differs from the JAX module: ``close`` stops the listener,
+cancels the open connections, drops the probe and joins the loop thread
+and both executors, so no thread of a closed proxy is left; the JAX proxy
+lives in its own process and leaves that to the process's end.
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ import weakref
 from typing import Iterable, Optional
 
 from ray_tpu_torch import config
+from ray_tpu_torch.cluster import fault_plane
+from ray_tpu_torch.util import events
 
 # Proxies constructed in this process and not closed yet: a live proxy
 # holds a listening socket and three kinds of threads.
@@ -66,6 +74,13 @@ def _http_error(code: int, msg: str,
     return (f"HTTP/1.1 {code} {_REASONS.get(code, 'Error')}\r\n"
             f"Content-Type: application/json\r\n{extra}"
             f"Content-Length: {len(body)}\r\n\r\n").encode() + body
+
+
+def _emit(kind: str, ident: str, value: float = 1.0, **attrs) -> None:
+    try:
+        events.emit(kind, ident, value=value, attrs=attrs or None)
+    except Exception:
+        pass   # the flight recorder never fails a request
 
 
 class HTTPProxy:
@@ -103,6 +118,13 @@ class HTTPProxy:
             raise self._boot_error or RuntimeError(
                 "serve proxy failed to start within 10s")
         _live_proxies.add(self)
+        events.register_probe("serve.proxy", self._probe)
+
+    def _probe(self) -> dict:
+        queued = sum(st["queued"] for st in self._adm.values())
+        ongoing = sum(st["ongoing"] for st in self._adm.values())
+        return {"rt_serve_queued": float(queued),
+                "rt_serve_ongoing": float(ongoing)}
 
     # -- event loop -------------------------------------------------------
     def _run_loop(self) -> None:
@@ -199,10 +221,15 @@ class HTTPProxy:
         n = len(h._replicas)
         return max(1, max(1, n) * max(1, cap))
 
-    def _reject(self, writer, code: int, msg: str) -> None:
+    def _reject(self, writer, name: str, code: int, msg: str,
+                t0: float) -> None:
         kind = "shed" if code == 503 else \
             "timeouts" if code == 504 else "errors"
         self._counts[kind] += 1
+        if code == 503:
+            _emit("serve.shed", name)
+        _emit("serve.request", name, value=time.monotonic() - t0,
+              code=code, deployment=name)
         writer.write(_http_error(
             code, msg, retry_after=1 if code == 503 else None))
 
@@ -245,9 +272,14 @@ class HTTPProxy:
                 args = (body,)
 
         t0 = time.monotonic()
+        try:
+            fault_plane.fire("serve.proxy.admit", deployment=name, path=path)
+        except Exception:
+            self._reject(writer, name, 503, "admission rejected", t0)
+            return
         st = self._adm_state(name)
         if st["queued"] >= int(config.get("serve_max_queued_requests")):
-            self._reject(writer, 503, f"queue full for {name!r}")
+            self._reject(writer, name, 503, f"queue full for {name!r}", t0)
             return
         deadline = t0 + float(config.get("serve_request_timeout_s"))
         # Queue for an ongoing slot. The loop is single-threaded, so the
@@ -256,8 +288,9 @@ class HTTPProxy:
         try:
             while st["ongoing"] >= self._budget(name):
                 if time.monotonic() >= deadline:
-                    self._reject(writer, 504,
-                                 "timed out waiting for capacity")
+                    _emit("serve.timeout", name)
+                    self._reject(writer, name, 504,
+                                 "timed out waiting for capacity", t0)
                     return
                 await asyncio.sleep(0.005)
             st["ongoing"] += 1
@@ -281,20 +314,23 @@ class HTTPProxy:
             from ray_tpu_torch.serve.controller import ReplicaBusyError
             if isinstance(e, GetTimeoutError):
                 # the in-flight call was cancelled by ServeCallRef
-                self._reject(writer, 504, "deployment call timed out")
+                self._reject(writer, name, 504,
+                             "deployment call timed out", t0)
             elif isinstance(e, (ReplicaBusyError, RuntimeError)) \
                     or _retryable(e):
                 # _retryable covers the call that burned its one retry on
                 # a SECOND dying replica: the failure is the replicas',
                 # not the request's — the client may retry (503), this is
                 # not a 500.
-                self._reject(writer, 503, repr(e))
+                self._reject(writer, name, 503, repr(e), t0)
             else:
-                self._reject(writer, 500, repr(e))
+                self._reject(writer, name, 500, repr(e), t0)
             return
         finally:
             st["ongoing"] -= 1
         self._counts["served"] += 1
+        _emit("serve.request", name, value=time.monotonic() - t0,
+              code=200, deployment=name)
         if isinstance(out, StreamingResponse):
             writer.write((
                 "HTTP/1.1 200 OK\r\n"
@@ -409,6 +445,7 @@ class HTTPProxy:
             return
         self._closed = True
         _live_proxies.discard(self)
+        events.unregister_probe("serve.proxy", self._probe)
         if self._server is not None and self._thread.is_alive():
             try:
                 asyncio.run_coroutine_threadsafe(

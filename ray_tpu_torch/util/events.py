@@ -287,6 +287,15 @@ def register_probe(name: str,
     _probes[name] = fn
 
 
+def unregister_probe(name: str,
+                     fn: Optional[Callable[[], Dict[str, float]]] = None
+                     ) -> None:
+    """Drop the probe registered under ``name`` (only if it is ``fn``,
+    when given): a closed owner must not be sampled, nor kept alive."""
+    if fn is None or _probes.get(name) == fn:
+        _probes.pop(name, None)
+
+
 def register_inflight_scan(name: str,
                            fn: Callable[[], List[tuple]]) -> None:
     """Register a callable returning [(kind, ident, elapsed_s)] for ops

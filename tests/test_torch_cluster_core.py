@@ -216,6 +216,15 @@ def slow_one():
     return 1
 
 
+@rt.remote
+class Keeper:
+    def __init__(self, x):
+        self.n = len(x)
+
+    def size(self):
+        return self.n
+
+
 # ---------------------------------------------------------------------------
 # tests/test_cluster_runtime.py
 # ---------------------------------------------------------------------------
@@ -525,6 +534,20 @@ class TestRefcountCases:
         del big
         gc.collect()
         assert rt.get(out) == 7
+
+    def test_actor_constructor_ref_arg_outlives_the_callers_ref(
+            self, cluster_rt):
+        """The caller drops the ref it gave an actor's constructor at once,
+        and the actor starts only once a CPU frees up: the creation pins
+        the arg until the actor has started, so ``__init__`` gets the
+        value instead of waiting for a freed object."""
+        busy = [slow.remote(1.5) for _ in range(4)]   # every CPU
+        time.sleep(0.2)
+        a = Keeper.remote(rt.put(np.zeros(1 << 20, dtype=np.uint8)))
+        gc.collect()
+        assert rt.get(a.size.remote(), timeout=30) == 1 << 20
+        rt.get(busy)
+        rt.kill(a)
 
     def test_borrower_keeps_object_alive(self, cluster_rt):
         """A worker that KEEPS a borrowed ref (stores it in an actor field)

@@ -13,6 +13,7 @@ from ray_tpu_torch import models as tmodels
 from ray_tpu_torch import ops as tops
 from ray_tpu_torch import parallel as tparallel
 from ray_tpu_torch import rl as trl
+from ray_tpu_torch import serve as tserve
 from ray_tpu_torch import train as ttrain
 from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.ops import _build
@@ -422,7 +423,8 @@ def _fresh(body):
 @pytest.mark.parametrize("module", [
     "ray_tpu_torch.core.runtime_cluster", "ray_tpu_torch.cluster.worker_main",
     "ray_tpu_torch.cluster.worker_zygote", "ray_tpu_torch.train.trainer",
-    "ray_tpu_torch.util.collective", "ray_tpu_torch.data"])
+    "ray_tpu_torch.util.collective", "ray_tpu_torch.data",
+    "ray_tpu_torch.serve"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
@@ -553,3 +555,60 @@ def test_lambda_data_function_on_the_cluster_runtime_raises_at_the_call():
 
 def _module_level_batch_fn(batch):
     return batch
+
+
+@tserve.deployment(num_replicas=2)
+class ShippedModel:
+    def __init__(self, scale):
+        self.scale = scale
+
+    def __call__(self, x):
+        return x * self.scale
+
+
+@tserve.deployment
+def shipped_echo(x):
+    return x
+
+
+def test_module_level_deployment_round_trips_through_the_pickler():
+    """A module-level ``@serve.deployment`` class or function ships by
+    import path: its module attribute is the ``Deployment``, which the
+    pickler resolves to the target behind it, as it does for ``@remote``
+    wrappers."""
+    from ray_tpu_torch.core import serialization
+    payload = (ShippedModel._target, ((3,), {}))
+    target, (args, kwargs) = serialization.loads(
+        serialization.dumps(payload))
+    assert target is ShippedModel._target and args == (3,)
+    assert target(*args)(2) == 6
+    assert serialization.loads(serialization.dumps(
+        shipped_echo._target)) is shipped_echo._target
+    copy = serialization.loads(serialization.dumps(ShippedModel))
+    assert isinstance(copy, tserve.Deployment)
+    assert copy._target is ShippedModel._target
+    assert copy.num_replicas == 2 and copy.name == "ShippedModel"
+
+
+def test_nested_deployment_raises_at_serve_run_on_a_port_cluster():
+    """On the cluster runtime a deployment class defined inside a function
+    cannot reach a replica's process: ``serve.run`` raises ``TypeError``
+    in the driver, before the controller exists."""
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    ray_tpu_torch.shutdown()
+    c = Cluster(initialize_head=True, head_node_args={"num_cpus": 2})
+    ray_tpu_torch.init(address=c.address)
+    try:
+        @tserve.deployment
+        class Nested:
+            def __call__(self):
+                return 1
+
+        with pytest.raises(TypeError, match="define it at module level"):
+            tserve.run(Nested.bind())
+        with pytest.raises(ValueError):
+            tserve.status()   # no controller was started
+    finally:
+        tserve.shutdown()
+        ray_tpu_torch.shutdown()
+        c.shutdown()

@@ -538,16 +538,35 @@ def test_serve_refs_mix_with_plain_refs_in_get_and_wait():
             refs[1].__reduce__()
 
 
-def test_compile_is_refused_with_its_roadmap_item():
-    with _stack("port") as (rt, serve):
-        @serve.deployment
-        def echo(x):
-            return x
+def test_compiled_handle_on_the_in_process_runtime_matches_jax():
+    """``serve.run(..., compile=True)`` on each package's in-process
+    runtime: nothing compiles there (a compiled graph needs an actor's
+    worker process), so the handle keeps ``_compile`` and answers every
+    call on the task path, a bad call raising at its own get()."""
+    def scenario(rt, serve):
+        @serve.deployment(num_replicas=1)
+        class Doubler:
+            def __call__(self, x):
+                return x * 2
 
-        with pytest.raises(NotImplementedError, match=r"A\.5\(b\)"):
-            serve.run(echo.bind(), compile=True)
-        assert rt.get(serve.run(echo.bind()).remote(3),
-                      timeout=TIMEOUT) == 3
+        handle = serve.run(Doubler.bind(), compile=True)
+        compiled = handle._compile
+        outs = [rt.get(handle.remote(i), timeout=TIMEOUT) for i in range(4)]
+        bad = handle.remote(1, 2, 3)
+        try:
+            rt.get(bad, timeout=TIMEOUT)
+            raised = None
+        except Exception as e:  # noqa: BLE001 - both stacks' TaskError
+            raised = type(e.cause).__name__
+        after = rt.get(handle.remote(7), timeout=TIMEOUT)
+        graphs = len(handle._cgraphs)
+        handle.teardown_compiled()
+        return (compiled, outs, raised, after, graphs, handle._compile,
+                rt.get(handle.remote(8), timeout=TIMEOUT))
+
+    jax_out, port_out = _on_both(scenario)
+    assert jax_out == port_out == (True, [0, 2, 4, 6], "TypeError", 14, 0,
+                                   False, 16)
 
 
 def test_user_errors_are_not_retried_and_answer_500():
