@@ -335,10 +335,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    conductor and starts a new GPU replica; the seconds from the kill to
    the first 200, whose answer must equal the driver's. Teardown leaves
    no process, segment (store or channel) or extra card context.
+31. The RL drivers on the cluster runtime (a port ``Cluster`` whose head
+   counts the card as ``"GPU": 1``, 4 CPUs; ``init(address=...)``). (a)
+   PPO at phase 13's gate settings with the learner on the card in the
+   driver and the 2 rollout workers as CPU worker processes (each must see
+   no card, make no CUDA context and run one torch thread); the gate must
+   be met within 25 iterations. Env steps/s (also after the first
+   iteration, which pays the workers' start), the median iteration with
+   its sample and update parts, beside phase 16's in-process drivers and
+   phase 13's CPU-worker hand loop from this call. (b) The same with
+   ``learner_remote=True, learner_num_gpus=1``: the learner in a GPU
+   worker process, the same gate, 2 card contexts while it trains (the
+   driver's and the learner's); then ``save()`` and a fresh build with the
+   learner in the driver ``restore`` s it: 12 of 12 leaves bitwise equal.
+   (c) IMPALA and APPO, 3 iterations each (env steps/s, the ``rt.wait``
+   share); then a fresh build stopped at once, its first samples in flight
+   (``SlowCartPole``, 100 ms a step): both refs must fail as dead-actor
+   errors and no actor stay ALIVE. (d) DQN, TD3 and ES: one ``train()``
+   each, finite stats, the collectors and ES workers CPU processes.
+   Teardown leaves no process, segment or extra card context.
 
-No flash kernel runs on phases 13-22 (the JAX RL stack reaches no Pallas
-kernel): each path's counts must stay 0, as they must for ring, Ulysses and
-the PPO learner in phase 23. Phases 17-30 print their seconds.
+No flash kernel runs on phases 13-22 and 31 (the JAX RL stack reaches no
+Pallas kernel): each path's counts must stay 0, as they must for ring,
+Ulysses and the PPO learner in phase 23. Phases 17-31 print their
+seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -359,6 +379,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch import serve
+from ray_tpu_torch.rl.env import CartPoleVectorEnv
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_BF16_FLOPS = 989e12
@@ -5403,6 +5424,300 @@ def phase_serve_cluster(card, http_run, cgraph_run):
                 recovery_failures=failures, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the RL drivers on the port's cluster runtime
+# ---------------------------------------------------------------------------
+
+RLC_ASYNC_ITERS = 3       # IMPALA and APPO iterations on the cluster
+
+
+class SlowCartPole(CartPoleVectorEnv):
+    """CartPole at 100 ms a step: a worker's first sample is still in flight
+    when phase 31 stops the driver (module level: the workers import it by
+    path)."""
+
+    def vector_step(self, actions):
+        time.sleep(0.1)
+        return super().vector_step(actions)
+
+
+def _sampler_wheres(rt, actors, tag):
+    """``where()`` of each sampling actor; each must be a worker process of
+    its own that sees no card, made no CUDA context and samples on the CPU
+    with one torch thread."""
+    import os
+    infos = rt.get([a.where.remote() for a in actors], timeout=300)
+    pids = {i["pid"] for i in infos}
+    check(len(pids) == len(infos) and os.getpid() not in pids
+          and all((i["visible"], i["cuda_initialized"], i["device"],
+                   i["threads"]) == ("", False, "cpu", 1) for i in infos),
+          f"[{tag}] the samplers are not CPU worker processes: {infos}")
+    return infos
+
+
+def _alive_of(c, ids):
+    return [a["actor_id"] for a in c.conductor.rpc_list_actors()
+            if a["state"] == "ALIVE" and a["actor_id"] in ids]
+
+
+def _until_empty(probe, limit_s=30.0):
+    deadline = time.monotonic() + limit_s
+    got = probe()
+    while got and time.monotonic() < deadline:
+        time.sleep(0.1)
+        got = probe()
+    return got
+
+
+def _ppo_on_cluster(rt, algo, tag, card):
+    """PPO to phase 13's gate on the cluster -> its rate, iteration and
+    sample/update medians, with the samplers' placement checked."""
+    spent = _time_driver_parts(algo)
+    results, best, rewards = _train_to(algo, PPO_GATE, PPO_ITERS, tag)
+    _sampler_wheres(rt, algo.workers.workers, tag)
+    for r in results:
+        _check_finite_info(r, tag)
+    steps, rate = _rate(results, "num_env_steps_sampled")
+    _, later_rate = _rate(results[1:], "num_env_steps_sampled")
+    out = dict(iterations=len(results), env_steps=steps,
+               env_steps_per_s=rate, later_env_steps_per_s=later_rate,
+               first_iteration_s=results[0]["time_this_iter_s"],
+               iteration_ms=1e3 * float(np.median(
+                   [r["time_this_iter_s"] for r in results])),
+               sample_ms=1e3 * float(np.median(spent["sample"])),
+               update_ms=1e3 * float(np.median(spent["update"])),
+               best_reward=best, rewards=rewards)
+    print(f"[{tag}] gate met at iteration {out['iterations']} (best "
+          f"{best:.2f}); {steps} env steps, {rate:.1f} env steps/s "
+          f"({later_rate:.1f} after the first iteration, which took "
+          f"{out['first_iteration_s']:.2f} s); median iteration "
+          f"{out['iteration_ms']:.1f} ms (sample {out['sample_ms']:.1f}, "
+          f"update {out['update_ms']:.1f}); rewards {rewards} on {card}",
+          flush=True)
+    return out
+
+
+def phase_rl_cluster(card, drivers_run, cpu_workers_run):
+    """Phase 31: the RL drivers on a port ``Cluster`` whose head counts the
+    card: rollout workers, collectors and ES workers as CPU worker
+    processes, the learner on the card in the driver or in a GPU worker
+    process."""
+    import os
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.dag import channel
+    from ray_tpu_torch.rl.algorithms import (APPOConfig, DQNConfig,
+                                             ESConfig, ImpalaConfig,
+                                             TD3Config)
+    from ray_tpu_torch.rl.learner import _named_leaves
+    t_phase = time.perf_counter()
+    tag = "rl-cluster"
+    out = {}
+    apps_before = _compute_apps()
+    c = Cluster(initialize_head=True, head_node_args={"num_cpus": 4})
+    prefixes = [n.store_prefix for n in c.nodes]
+    _reset_launch_counts()
+    try:
+        rt.init(address=c.address)
+        try:
+            res = rt.cluster_resources()
+            check(res.get("GPU") == 1.0 and res.get("CPU") == 4.0,
+                  f"[{tag}] the head counts {res}")
+            # (a) the learner on the card in the driver
+            algo = _gate_config().build()
+            check(str(algo.learner_group.local.device).startswith("cuda"),
+                  f"[{tag}] the driver's learner is on "
+                  f"{algo.learner_group.local.device}")
+            out["local"] = _ppo_on_cluster(rt, algo, tag + " local", card)
+            algo.stop()
+            n, local = out["local"]["iterations"], out["local"]
+            hand = _hand_over(cpu_workers_run, n)
+            local["vs_drivers"] = (local["env_steps_per_s"]
+                                   / drivers_run["env_steps_per_s"])
+            local["vs_cpu_hand_loop"] = (local["env_steps_per_s"]
+                                         / hand["env_steps_per_s"])
+            local["median_vs_drivers"] = (drivers_run["iteration_ms"]
+                                          / local["iteration_ms"])
+            local["median_vs_cpu_hand_loop"] = (hand["iteration_ms"]
+                                                / local["iteration_ms"])
+            print(f"[{tag}] same call: phase 16's in-process drivers "
+                  f"{drivers_run['env_steps_per_s']:.1f} env steps/s "
+                  f"(median iteration {drivers_run['iteration_ms']:.1f} ms: "
+                  f"sample {drivers_run['sample_ms']:.1f}, update "
+                  f"{drivers_run['update_ms']:.1f}); phase 13's hand loop "
+                  f"with CPU workers over its first {n} iterations "
+                  f"{hand['env_steps_per_s']:.1f} env steps/s (median "
+                  f"iteration {hand['iteration_ms']:.1f} ms: sample "
+                  f"{hand['sample_ms']:.1f}, update {hand['update_ms']:.1f})"
+                  f". Cluster / in-process drivers: env steps/s "
+                  f"{local['vs_drivers']:.4f}, by median iteration "
+                  f"{local['median_vs_drivers']:.4f}; cluster / CPU hand "
+                  f"loop: {local['vs_cpu_hand_loop']:.4f}, by median "
+                  f"iteration {local['median_vs_cpu_hand_loop']:.4f}",
+                  flush=True)
+
+            # (b) the learner in a num_gpus=1 worker process
+            config = _gate_config(learner_remote=True, learner_num_gpus=1)
+            t0 = time.perf_counter()
+            algo = config.build()     # waits for the learner's first weights
+            build_s = time.perf_counter() - t0
+            learner_id = algo.learner_group.actor.actor_id.hex()
+            out["remote"] = _ppo_on_cluster(rt, algo, tag + " remote", card)
+            out["remote"]["build_s"] = build_s
+            apps_training = _compute_apps()
+            check(len(apps_training) == len(apps_before) + 1,
+                  f"[{tag}] card contexts with the remote learner "
+                  f"{apps_training}, want the driver's and the learner's "
+                  f"(before the phase {apps_before})")
+            check(learner_id in _alive_of(c, {learner_id}),
+                  f"[{tag}] the remote learner is not an ALIVE actor")
+            out["remote"]["vs_local"] = (out["remote"]["env_steps_per_s"]
+                                         / out["local"]["env_steps_per_s"])
+            out["remote"]["median_vs_local"] = (
+                out["local"]["iteration_ms"] / out["remote"]["iteration_ms"])
+            out["remote"]["contexts"] = len(apps_training)
+            import tempfile
+            with tempfile.TemporaryDirectory() as tmp:
+                ckpt = algo.save(tmp)
+                want = _named_leaves(algo.get_state()["weights"])
+                iteration = algo.iteration
+                algo.stop()
+                fresh = _gate_config().build()
+                fresh.restore(ckpt)
+            got = _named_leaves(fresh.get_state()["weights"])
+            same = [k in got and got[k].tobytes() == v.tobytes()
+                    for k, v in want.items()]
+            check(len(same) == 12 and all(same)
+                  and fresh.iteration == iteration,
+                  f"[{tag}] restore from the remote learner: {sum(same)} of "
+                  f"{len(same)} leaves equal, iteration {fresh.iteration} "
+                  f"(saved {iteration})")
+            fresh.stop()
+            print(f"[{tag}] learner in a num_gpus=1 worker process: card "
+                  f"contexts while training {len(apps_training)} (before "
+                  f"the phase {len(apps_before)}); remote / driver learner: "
+                  f"env steps/s {out['remote']['vs_local']:.4f}, by median "
+                  f"iteration {out['remote']['median_vs_local']:.4f}; "
+                  f"build() {build_s:.2f} "
+                  f"s (the learner's worker spawned); save -> a fresh "
+                  f"build() with the learner in the driver -> restore: 12 "
+                  f"of 12 leaves bitwise equal at iteration {iteration}",
+                  flush=True)
+
+            # (c) IMPALA and APPO, then stop() with samples in flight
+            for name, config in (
+                    ("impala", _async_config(ImpalaConfig,
+                                             train_batch_size=512)),
+                    ("appo", _async_config(APPOConfig, train_batch_size=1024,
+                                           lr=5e-4))):
+                algo = config.build()
+                # the workers are up (where() waits behind the first sample)
+                _sampler_wheres(rt, algo.workers.workers, f"{tag} {name}")
+                waits = []
+                with _timed_calls(rt, "wait", waits):
+                    results = [algo.train() for _ in range(RLC_ASYNC_ITERS)]
+                for r in results:
+                    _check_finite_info(r, f"{tag} {name}")
+                algo.stop()
+                steps, rate = _rate(results, "num_env_steps_sampled")
+                secs = sum(r["time_this_iter_s"] for r in results)
+                out[name] = dict(iterations=RLC_ASYNC_ITERS, env_steps=steps,
+                                 env_steps_per_s=rate,
+                                 wait_share=sum(waits) / secs)
+                # a fresh build's first samples are in flight at once
+                slow = config.copy()
+                slow.env = SlowCartPole
+                algo = slow.build()
+                ids = {w.actor_id.hex() for w in algo.workers.workers}
+                refs = list(algo._inflight)
+                algo.stop()
+                died = []
+                for ref in refs:
+                    try:
+                        rt.get(ref, timeout=120)
+                        died.append(False)
+                    except rt.ActorDiedError:
+                        died.append(True)
+                    except rt.TaskError as e:
+                        died.append(isinstance(e.cause, rt.ActorDiedError))
+                left = _until_empty(lambda: _alive_of(c, ids))
+                check(len(refs) == 2 and all(died) and not left,
+                      f"[{tag} {name}] stop() with samples in flight: refs "
+                      f"died {died}, ALIVE left {left}")
+                print(f"[{tag} {name}] {RLC_ASYNC_ITERS} iterations, {steps} "
+                      f"env steps, {rate:.1f} env steps/s, share of the "
+                      f"driver's time in rt.wait "
+                      f"{out[name]['wait_share']:.4f}; stop() with 2 samples "
+                      f"in flight: both refs fail as dead-actor errors, no "
+                      f"actor ALIVE", flush=True)
+
+            # (d) DQN, TD3 and ES: one iteration each
+            dqn = (DQNConfig().environment("CartPole-v1")
+                   .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                             rollout_fragment_length=32))
+            dqn.learning_starts = 128
+            td3 = (TD3Config().environment("Pendulum-v1")
+                   .rollouts(num_rollout_workers=1, num_envs_per_worker=8,
+                             rollout_fragment_length=64))
+            td3.learning_starts = 256
+            es = ESConfig().rollouts(num_rollout_workers=2)
+            es.num_perturbations, es.episode_horizon = 4, 50
+            for name, config, samplers, keys in (
+                    ("dqn", dqn, lambda a: a.collectors,
+                     ("info/td_loss", "epsilon")),
+                    ("td3", td3, lambda a: a.collectors,
+                     ("critic_loss", "actor_loss")),
+                    ("es", es, lambda a: a.workers,
+                     ("episode_reward_mean", "info/grad_norm"))):
+                algo = config.build()
+                t0 = time.perf_counter()
+                result = algo.train()
+                secs = time.perf_counter() - t0
+                _sampler_wheres(rt, samplers(algo), f"{tag} {name}")
+                algo.stop()
+                nums = {k: float(result.get(k, float("nan"))) for k in keys}
+                check(all(np.isfinite(v) for v in nums.values()),
+                      f"[{tag} {name}] non-finite result {nums}")
+                out[name] = dict(seconds=secs, result=nums)
+                print(f"[{tag} {name}] one train() on the cluster in "
+                      f"{secs:.2f} s: {nums}", flush=True)
+            left = _until_empty(lambda: [
+                a["class_name"] for a in c.conductor.rpc_list_actors()
+                if a["state"] == "ALIVE"])
+            check(not left, f"[{tag}] actors ALIVE after every stop(): "
+                            f"{left}")
+        finally:
+            rt.shutdown()
+    finally:
+        c.shutdown()
+    deadline = time.monotonic() + 30
+    while True:
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        rings = channel.leaked_segments(prefixes)
+        apps = _compute_apps()
+        if not (left or segs or rings or len(apps) > len(apps_before)) \
+                or time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    print(f"[{tag}] after shutdown: session processes {left}, segments "
+          f"{segs}, channel segments {rings}, card contexts {len(apps)} "
+          f"(before the phase {len(apps_before)})", flush=True)
+    check(not left and not segs and not rings
+          and len(apps) <= len(apps_before),
+          f"[{tag}] left processes {left}, segments {segs}, rings {rings}, "
+          f"contexts {apps}")
+    out["launches"] = _launch_counts()
+    check(out["launches"] == (0, 0, 0, 0),
+          f"[{tag}] the RL drivers launched flash kernels {out['launches']}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[{tag}] flash launches {out['launches']}; phase seconds "
+          f"{out['seconds']:.1f}", flush=True)
+    return out
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -5498,6 +5813,11 @@ def main() -> int:
     runs["serve-cluster"] = phase_serve_cluster(card, runs["http-serve"],
                                                 runs["compiled-graph"])
     print(f"[phase] serve cluster: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["rl-cluster"] = phase_rl_cluster(card, runs["ppo_drivers"],
+                                          runs["ppo_cartpole_cpu_workers"])
+    print(f"[phase] rl cluster: {time.perf_counter() - t0:.1f} s",
           flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 

@@ -1031,11 +1031,28 @@ class Conductor:
             a = self._actors.get(actor_id)
             if a is None or a.incarnation != incarnation:
                 return
-            a.state = ALIVE
-            a.address = address
-            a.node_id = node_id
-            self._log("actor_state", self._actor_record(a))
-            self._cv.notify_all()
+            killed = a.state == DEAD
+            if not killed:
+                a.state = ALIVE
+                a.address = address
+                a.node_id = node_id
+                self._log("actor_state", self._actor_record(a))
+                self._cv.notify_all()
+        if killed:
+            # Killed while its worker was still creating it (no address to
+            # send the kill to then): the actor stays DEAD, and the worker
+            # that just finished it is told to end it, off this handler,
+            # whose caller is that worker waiting for the reply.
+            threading.Thread(target=self._end_killed_actor,
+                             args=(address, actor_id), daemon=True,
+                             name="conductor-end-killed").start()
+
+    @staticmethod
+    def _end_killed_actor(address: str, actor_id: bytes) -> None:
+        try:
+            get_client(address).call("kill_actor", actor_id=actor_id)
+        except Exception:
+            pass   # the worker is gone already
 
     def rpc_actor_creation_failed(self, actor_id: bytes, incarnation: int,
                                   error_blob: bytes) -> None:

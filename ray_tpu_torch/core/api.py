@@ -9,9 +9,8 @@ and the @ray.remote decorator. The module holds the process-global runtime.
   ``ClusterRuntime(address=None)``): tasks and actors run in worker
   processes, objects live in the node's shm store.
 - ``init()`` and ``init(local_mode=True)`` start the in-process runtime,
-  where the JAX package's ``init()`` starts a head (ROADMAP.md C). Serve
-  runs on either runtime; the RL drivers still rely on the in-process
-  one's callables by reference (ROADMAP.md A.5(b2)).
+  where the JAX package's ``init()`` starts a head (ROADMAP.md C,
+  A.5(b3)). Serve and the RL drivers run on either runtime.
 - ``client://`` raises ``NotImplementedError``: the client runtime is
   still to port (ROADMAP.md A.5).
 """
@@ -88,6 +87,14 @@ def shutdown() -> None:
 
 def is_initialized() -> bool:
     return _runtime is not None
+
+
+def in_process_runtime() -> bool:
+    """Whether the API's runtime is the in-process one (``init()``): actors
+    are threads of this process, not worker processes. With no runtime yet
+    it is the one an implicit ``init()`` would start; asking starts none."""
+    from ray_tpu_torch.core.runtime_local import LocalRuntime
+    return _runtime is None or isinstance(_runtime, LocalRuntime)
 
 
 def _global_runtime():

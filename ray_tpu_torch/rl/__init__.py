@@ -8,9 +8,10 @@ connectors (``rl.connectors``), multi-agent collection
 ``WorkerSet``, ``Algorithm``, ``AlgorithmConfig``), and the algorithms in
 ``ray_tpu_torch.rl.algorithms`` (PPO, IMPALA, APPO, A2C, DQN, SAC, TD3,
 DDPG, CQL, QMIX, MADDPG, ES and the bandits), in PyTorch. The drivers
-run the rollout workers, collectors and learners as actors of the port's
-in-process runtime or in the driver's thread, all on one device (``None`` =
-the CUDA card):
+run the rollout workers, collectors and learners as actors of either port
+runtime or in the driver's thread. The learner runs on the config's device
+(``None`` = the CUDA card); the samplers share it in-process, and on a
+cluster (``rt.init(address=...)``) sample on the CPU in worker processes:
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl.algorithms import PPOConfig

@@ -5,17 +5,20 @@ Role parity: rllib/algorithms/algorithm.py:149 (Algorithm(Trainable):
 setup builds the WorkerSet, train() -> training_step) and
 algorithm_config.py:117 (AlgorithmConfig fluent builder). The WorkerSet
 (evaluation/worker_set.py:79) is a list of RolloutWorker actors with
-object-store weight broadcast (sync_weights:384), on the port's in-process
-runtime.
+object-store weight broadcast (sync_weights:384), on either of the port's
+runtimes: in this process (``init()``), or in worker processes of a cluster
+(``init(address=...)``).
 
-The port's device idiom: ``resources(device=...)`` places the learner and
-the rollout workers; ``None`` (the default) means the CUDA card for both,
-as the JAX package runs both on its default device, the accelerator, in one
-process. ``Algorithm.__init__`` resolves it before any actor exists, so a
-machine without a card raises at ``build()``. ``learner_num_gpus`` is the
-remote learner's resource, where the JAX package has ``learner_num_tpus``.
-Checkpoints are the JAX package's pickle: the weights a numpy tree in its
-layout, so a checkpoint of either stack restores in the other.
+The port's device idiom: ``resources(device=...)`` places the learner;
+``None`` (the default) means the CUDA card, as the JAX package runs it on
+its default device, the accelerator. ``Algorithm.__init__`` resolves it
+before any actor exists, so a machine without a card raises at ``build()``.
+Where the rollout workers, the DQN/TD3 collectors and the ES workers sample
+is ``sampler_placement``'s rule: on the learner's device in-process, on the
+CPU in worker processes. ``learner_num_gpus`` is the remote learner's
+resource, where the JAX package has ``learner_num_tpus``. Checkpoints are
+the JAX package's pickle: the weights a numpy tree in its layout, so a
+checkpoint of either stack restores in the other.
 """
 
 from __future__ import annotations
@@ -29,9 +32,14 @@ from typing import Any, Callable, Dict, List, Optional
 
 import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.rl.env import make_env
+from ray_tpu_torch.core.api import in_process_runtime
+from ray_tpu_torch.rl.env import check_env_ships, make_env
 from ray_tpu_torch.rl.rollout import RolloutWorker
 from ray_tpu_torch.rl.sample_batch import SampleBatch
+
+
+# the CPUs a sampling actor asks for
+SAMPLER_CPUS = 1
 
 
 class AlgorithmConfig:
@@ -108,17 +116,38 @@ class AlgorithmConfig:
         return copy.deepcopy(self)
 
 
+def sampler_placement(device) -> dict:
+    """Where a rollout worker, a DQN/TD3 collector or an ES worker samples
+    for a learner on ``device``: its ``device`` and ``num_threads``
+    arguments (ROADMAP.md C, "Samplers on a cluster").
+
+    - In worker processes (a cluster): the CPU, with one torch intra-op
+      thread for the actor's one CPU. The actor asks ``num_cpus=1`` and no
+      card, and the daemon gives such a worker ``CUDA_VISIBLE_DEVICES=""``,
+      as the JAX daemon gives every worker ``JAX_PLATFORMS=cpu``: the
+      reference's placement, with no CUDA context or spawned process a
+      worker. torch would start a thread a core in every such process,
+      which oversubscribes the host's cores.
+    - In this process: ``device``, the learner's, and the process's own
+      threads.
+    """
+    if in_process_runtime():
+        return {"device": device, "num_threads": None}
+    return {"device": "cpu", "num_threads": SAMPLER_CPUS}
+
+
 class WorkerSet:
-    """Rollout-worker actors (parity: worker_set.py:79), each with its
-    policy on ``device``."""
+    """Rollout-worker actors (parity: worker_set.py:79), placed by
+    ``sampler_placement(device)``."""
 
     def __init__(self, config: AlgorithmConfig, module_spec: dict, device):
         cls = rt.remote(RolloutWorker)
         self.workers = [
-            cls.options(num_cpus=1).remote(
+            cls.options(num_cpus=SAMPLER_CPUS).remote(
                 config.env, module_spec, config.rollout_fragment_length,
                 config.num_envs_per_worker, config.gamma, config.lambda_,
-                seed=config.seed + 1000 * (i + 1), device=device)
+                seed=config.seed + 1000 * (i + 1),
+                **sampler_placement(device))
             for i in range(config.num_rollout_workers)
         ]
 
@@ -151,6 +180,7 @@ class Algorithm:
         self.config = config
         # before any actor: no card and device=None raises here
         self.device = resolve_device(config.device)
+        check_env_ships(config.env)
         self.iteration = 0
         self._timesteps_total = 0
         probe = make_env(config.env, num_envs=1, seed=config.seed)

@@ -21,7 +21,7 @@ from ray_tpu_torch.rl import sample_batch as sb
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig, WorkerSet
 from ray_tpu_torch.rl.algorithms.impala import (async_training_step,
                                                 episode_result)
-from ray_tpu_torch.rl.learner import ModuleLearner
+from ray_tpu_torch.rl.learner import ModuleLearner, host_tensor
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 from ray_tpu_torch.rl.vtrace import vtrace_returns
 
@@ -102,10 +102,10 @@ class APPOLearner(ModuleLearner):
             "rewards_tn": np.asarray(batch[sb.REWARDS]).reshape(T, N),
             "dones_tn": np.asarray(batch[sb.DONES]).reshape(T, N),
         }
-        feed = {k: torch.as_tensor(np.asarray(v)).to(
-            device=self.device, dtype=torch.float32) for k, v in host.items()}
-        last_obs = torch.as_tensor(np.asarray(batch.last_obs)).to(
-            device=self.device, dtype=torch.float32)
+        feed = {k: host_tensor(v).to(device=self.device, dtype=torch.float32)
+                for k, v in host.items()}
+        last_obs = host_tensor(batch.last_obs).to(device=self.device,
+                                                  dtype=torch.float32)
         stats = self.step(feed, last_obs)
         return {k: float(v) for k, v in stats.items()}
 

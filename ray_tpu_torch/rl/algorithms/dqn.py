@@ -2,17 +2,19 @@
 double-Q update; epsilon-greedy exploration on vectorized envs). Ported from
 ``ray_tpu/rl/algorithms/dqn.py``.
 
-The collectors are actors of the port's in-process runtime, each stepping a
-vector env on the host with its Q forward on the config's ``device``
-(``None`` = the card); their epsilon-greedy draws are the JAX collector's
-numpy ``default_rng`` draws, so given the same weights both stacks take the
-same actions. The replay buffer stays on the host; each TD step moves one
-sampled minibatch to the device.
+The collectors are actors of either port runtime, each stepping a vector
+env on the host with its Q forward where ``sampler_placement`` puts it (the
+learner's device in-process, the CPU in a cluster's worker processes);
+their epsilon-greedy draws are the JAX collector's numpy ``default_rng``
+draws, so given the same weights both stacks take the same actions. The
+replay buffer and the TD step stay in the driver, on the config's
+``device`` (``None`` = the card); each TD step moves one sampled minibatch
+there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -21,13 +23,14 @@ import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import rl_params_to_numpy
 from ray_tpu_torch.rl import sample_batch as sb
-from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.algorithm import (SAMPLER_CPUS, Algorithm,
+                                        AlgorithmConfig, sampler_placement)
 from ray_tpu_torch.rl.env import episode_stats_of, make_env
 from ray_tpu_torch.rl.learner import (adam, batch_to_device, clone_tree,
                                       copy_tree_, seeded_init, trainable_)
 from ray_tpu_torch.rl.module import make_module
 from ray_tpu_torch.rl.replay_buffer import ReplayBuffer
-from ray_tpu_torch.rl.rollout import place_params
+from ray_tpu_torch.rl.rollout import place_params, use_threads, where
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
 # the columns of a transition, in the order the collectors emit them
@@ -60,7 +63,9 @@ class DQNCollector:
     (s, a, r, s', done) transitions."""
 
     def __init__(self, env: Any, module_spec: dict, num_envs: int,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None,
+                 num_threads: Optional[int] = None):
+        use_threads(num_threads)
         self.device = resolve_device(device)
         self.env = make_env(env, num_envs=num_envs, seed=seed)
         self.module = make_module(module_spec)
@@ -96,6 +101,9 @@ class DQNCollector:
     def episode_stats(self) -> dict:
         return episode_stats_of(self.env)
 
+    def where(self) -> dict:
+        return where(self.device)
+
 
 class DQN(Algorithm):
     def setup(self) -> None:
@@ -108,9 +116,9 @@ class DQN(Algorithm):
         self._epsilon_step = 0
         collector_cls = rt.remote(DQNCollector)
         self.collectors = [
-            collector_cls.options(num_cpus=1).remote(
+            collector_cls.options(num_cpus=SAMPLER_CPUS).remote(
                 cfg.env, self.module_spec, cfg.num_envs_per_worker,
-                seed=cfg.seed + i + 1, device=self.device)
+                seed=cfg.seed + i + 1, **sampler_placement(self.device))
             for i in range(cfg.num_rollout_workers)]
 
     def td_step(self, batch) -> torch.Tensor:

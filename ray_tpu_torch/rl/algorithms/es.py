@@ -10,17 +10,18 @@ driver applies the rank-weighted update theta += alpha/(n*sigma) *
 sum(F_i * eps_i).
 
 The flat vector theta, the perturbations and the update are numpy on the
-driver, line for line the JAX version's. The workers are actors of the
-port's runtime; each runs its greedy forward on ``config.device`` (``None``
-= the card), with the perturbed weights put there once an episode. theta's
-layout is ``jax.tree.leaves``' order (dict keys sorted at every level,
-lists in order), so a seed's perturbation lands on the same weights as in
-the JAX package.
+driver, line for line the JAX version's. The workers are actors of either
+port runtime; each runs its greedy forward where ``sampler_placement`` puts
+it (in-process on ``config.device``, ``None`` = the card; on the CPU in a
+cluster's worker processes), with the perturbed weights put there once an
+episode. theta's layout is ``jax.tree.leaves``' order (dict keys sorted at
+every level, lists in order), so a seed's perturbation lands on the same
+weights as in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -28,11 +29,12 @@ import torch
 import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import rl_params_to_numpy
-from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.algorithm import (SAMPLER_CPUS, Algorithm,
+                                        AlgorithmConfig, sampler_placement)
 from ray_tpu_torch.rl.env import episode_stats_of, make_env
 from ray_tpu_torch.rl.learner import seeded_init
 from ray_tpu_torch.rl.module import make_module
-from ray_tpu_torch.rl.rollout import place_params
+from ray_tpu_torch.rl.rollout import place_params, use_threads, where
 
 
 class ESConfig(AlgorithmConfig):
@@ -85,7 +87,9 @@ class ESWorker:
     greedy forward on ``device`` (``None`` = the card)."""
 
     def __init__(self, env: Any, module_spec: dict, horizon: int,
-                 sigma: float, seed: int = 0, device=None):
+                 sigma: float, seed: int = 0, device=None,
+                 num_threads: Optional[int] = None):
+        use_threads(num_threads)
         self.device = resolve_device(device)
         self.env = make_env(env, num_envs=1, seed=seed)
         self.module = make_module(module_spec)
@@ -124,6 +128,9 @@ class ESWorker:
     def episode_stats(self) -> dict:
         return episode_stats_of(self.env)
 
+    def where(self) -> dict:
+        return where(self.device)
+
 
 class ES(Algorithm):
     def setup(self) -> None:
@@ -136,9 +143,9 @@ class ES(Algorithm):
         self._rng = np.random.default_rng(cfg.seed)
         worker_cls = rt.remote(ESWorker)
         self.workers = [
-            worker_cls.options(num_cpus=1).remote(
+            worker_cls.options(num_cpus=SAMPLER_CPUS).remote(
                 cfg.env, self.module_spec, cfg.episode_horizon, cfg.sigma,
-                seed=cfg.seed + i + 1, device=self.device)
+                seed=cfg.seed + i + 1, **sampler_placement(self.device))
             for i in range(max(1, cfg.num_rollout_workers))]
 
     def training_step(self) -> Dict[str, Any]:

@@ -3,13 +3,13 @@
 
 Role parity: rllib/algorithms/impala (async sample RPCs feeding a learner,
 impala.py:497-508 LearnerThread role). Sampling is decoupled: each rollout
-worker always has one sample call in flight on the port's in-process
-runtime; the driver consumes whichever finishes first (``rt.wait``),
-updates with an importance-weighted loss (clipped-rho correction for the
-policy lag), and re-dispatches that worker with fresh weights. Batches are
-consumed in arrival order, which the worker threads decide, so a run is not
-deterministic. The workers and the learner run on the config's ``device``
-(``None`` = the card).
+worker always has one sample call in flight, on either port runtime; the
+driver consumes whichever finishes first (``rt.wait``), updates with an
+importance-weighted loss (clipped-rho correction for the policy lag), and
+re-dispatches that worker with fresh weights. Batches are consumed in
+arrival order, which the workers' threads or processes decide, so a run is
+not deterministic. The learner runs on the config's ``device`` (``None`` =
+the card), the workers where ``algorithm.sampler_placement`` puts them.
 """
 
 from __future__ import annotations
@@ -118,11 +118,7 @@ class Impala(Algorithm):
         return {"weights": self.learner_group.get_weights()}
 
     def set_state(self, state: dict) -> None:
-        if self.learner_group.remote:
-            rt.get(self.learner_group.actor.set_weights.remote(
-                state["weights"]))
-        else:
-            self.learner_group.local.set_weights(state["weights"])
+        self.learner_group.set_weights(state["weights"])
         self._weights_ref = self.workers.sync_weights(state["weights"])
 
     def stop(self) -> None:

@@ -1,7 +1,9 @@
 """PPO (parity: rllib/algorithms/ppo — sync sample + clipped-surrogate
 minibatch SGD). Ported from ``ray_tpu/rl/algorithms/ppo.py``: the rollout
-workers and the learner run as actors of the port's in-process runtime, on
-the config's ``device`` (``None`` = the card)."""
+workers are actors of either port runtime (on a cluster, CPU worker
+processes: ``algorithm.sampler_placement``), and the learner runs on the
+config's ``device`` (``None`` = the card), in the driver or, with
+``learner_remote``, as an actor."""
 
 from __future__ import annotations
 
@@ -9,7 +11,6 @@ from typing import Any, Dict
 
 import numpy as np
 
-import ray_tpu_torch as rt
 from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig, WorkerSet
 from ray_tpu_torch.rl.learner import LearnerGroup, PPOLearner
 from ray_tpu_torch.rl.sample_batch import SampleBatch
@@ -70,11 +71,7 @@ class PPO(Algorithm):
         return {"weights": self.learner_group.get_weights()}
 
     def set_state(self, state: dict) -> None:
-        if self.learner_group.remote:
-            rt.get(self.learner_group.actor.set_weights.remote(
-                state["weights"]))
-        else:
-            self.learner_group.local.set_weights(state["weights"])
+        self.learner_group.set_weights(state["weights"])
         self._weights_ref = self.workers.sync_weights(state["weights"])
 
     def stop(self) -> None:

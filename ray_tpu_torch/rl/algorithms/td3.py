@@ -20,7 +20,7 @@ clipped to +-``target_noise_clip`` x scale), other draws. At
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -29,14 +29,16 @@ import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import _map_rl, rl_params_to_numpy
 from ray_tpu_torch.rl import sample_batch as sb
-from ray_tpu_torch.rl.algorithm import Algorithm, AlgorithmConfig
+from ray_tpu_torch.rl.algorithm import (SAMPLER_CPUS, Algorithm,
+                                        AlgorithmConfig, sampler_placement)
 from ray_tpu_torch.rl.algorithms.dqn import TRANSITION, transitions
 from ray_tpu_torch.rl.env import episode_stats_of, make_env
 from ray_tpu_torch.rl.learner import (adam, batch_to_device, clone_tree,
-                                      copy_tree_, polyak_, seeded_init,
-                                      trainable_)
+                                      copy_tree_, host_tensor, polyak_,
+                                      seeded_init, trainable_)
 from ray_tpu_torch.rl.module import mlp_apply, mlp_init
 from ray_tpu_torch.rl.replay_buffer import ReplayBuffer
+from ray_tpu_torch.rl.rollout import use_threads, where
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
 
@@ -189,7 +191,8 @@ class TD3Collector:
 
     def __init__(self, env: Any, module_spec: dict, num_envs: int,
                  *, hiddens=(64, 64), noise: float = 0.1, seed: int = 0,
-                 device=None):
+                 device=None, num_threads: Optional[int] = None):
+        use_threads(num_threads)
         self.device = resolve_device(device)
         self.env = make_env(env, num_envs=num_envs, seed=seed)
         low, high = self.env.action_low, self.env.action_high
@@ -209,8 +212,8 @@ class TD3Collector:
                 warmup: bool = False) -> SampleBatch:
         """``actor_params``: the actor as a numpy tree in the JAX layout."""
         if not warmup:
-            actor_params = _map_rl(actor_params, lambda _, v: torch.as_tensor(
-                np.asarray(v, np.float32), device=self.device))
+            actor_params = _map_rl(actor_params, lambda _, v: host_tensor(
+                np.asarray(v, np.float32)).to(self.device))
         rows = {k: [] for k in TRANSITION}
         N = self.env.num_envs
         act_dim = getattr(self.env, "action_dim", 1)
@@ -234,6 +237,9 @@ class TD3Collector:
     def episode_stats(self) -> dict:
         return episode_stats_of(self.env)
 
+    def where(self) -> dict:
+        return where(self.device)
+
 
 class TD3(Algorithm):
     _default_config = TD3Config
@@ -252,11 +258,11 @@ class TD3(Algorithm):
         self.buffer = ReplayBuffer(cfg.buffer_capacity, seed=cfg.seed)
         collector_cls = rt.remote(TD3Collector)
         self.collectors = [
-            collector_cls.options(num_cpus=1).remote(
+            collector_cls.options(num_cpus=SAMPLER_CPUS).remote(
                 cfg.env, self.module_spec, cfg.num_envs_per_worker,
                 hiddens=tuple(cfg.model_hiddens),
                 noise=cfg.exploration_noise, seed=cfg.seed + i + 1,
-                device=self.device)
+                **sampler_placement(self.device))
             for i in range(cfg.num_rollout_workers)]
 
     def training_step(self) -> Dict[str, Any]:

@@ -18,6 +18,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from ray_tpu_torch.core import serialization
+from ray_tpu_torch.core.api import in_process_runtime
+
 
 class VectorEnv:
     """N synchronized sub-envs; auto-resets finished sub-envs."""
@@ -242,6 +245,16 @@ class MultiAgentEnv:
 
     def step(self, actions: Dict[str, Any]):
         raise NotImplementedError
+
+
+def check_env_ships(env: Any) -> None:
+    """On a runtime whose actors are worker processes, an env factory or
+    class reaches them by import path: pickle it now, so that a lambda or
+    a closure raises the pickler's ``TypeError`` ("define it at module
+    level") in the driver, before any actor exists. The JAX package
+    cloudpickles it (ROADMAP.md C); in-process any callable goes."""
+    if not in_process_runtime():
+        serialization.dumps(env)
 
 
 def make_env(env: Any, num_envs: int, seed: int = 0) -> VectorEnv:

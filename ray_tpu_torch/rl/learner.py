@@ -26,18 +26,19 @@ gradient's all-reduce is DTensor's.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 import ray_tpu_torch as rt
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.core.api import in_process_runtime
 from ray_tpu_torch.models.convert import (_map_rl, rl_params_to_numpy,
                                           rl_tree_from_jax)
 from ray_tpu_torch.rl import sample_batch as sb
 from ray_tpu_torch.rl.module import _first_leaf, make_module
-from ray_tpu_torch.rl.rollout import place_params
+from ray_tpu_torch.rl.rollout import place_params, use_threads
 from ray_tpu_torch.rl.sample_batch import SampleBatch
 
 # the columns the loss reads: only these go to the device
@@ -109,6 +110,15 @@ def adam(leaves, lr: float) -> torch.optim.Adam:
                             weight_decay=0.0)
 
 
+def host_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor, sharing its memory where it may. A
+    column read from the store is a read-only view of its segment (ROADMAP.md
+    C, "Tensors across processes"), and torch has no read-only tensors, so
+    that one is copied first."""
+    a = np.asarray(a)
+    return torch.as_tensor(a if a.flags.writeable else a.copy())
+
+
 def batch_to_device(batch, keys, device) -> Dict[str, torch.Tensor]:
     """The columns ``keys`` of a host batch as tensors on ``device``: floats
     as f32 (the JAX package computes in f32), integers as they are (the
@@ -116,7 +126,7 @@ def batch_to_device(batch, keys, device) -> Dict[str, torch.Tensor]:
     out = {}
     for k in keys:
         a = np.asarray(batch[k])
-        out[k] = torch.as_tensor(a).to(
+        out[k] = host_tensor(a).to(
             device=device,
             dtype=None if a.dtype.kind in "iu" else torch.float32)
     return out
@@ -164,10 +174,13 @@ class ModuleLearner:
     """A catalog module's weights and their optimizer on one device
     (``None`` = the card): optax's ``chain(clip_by_global_norm, adam)`` as
     ``clip_by_global_norm_`` and ``torch.optim.Adam``. The PPO and APPO
-    learners add their losses."""
+    learners add their losses. ``num_threads``, if given, sets the process's
+    torch threads (a remote learner in a worker process: ``LearnerGroup``)."""
 
     def __init__(self, module_spec: dict, *, lr: float, grad_clip: float,
-                 seed: int, device=None, mesh=None):
+                 seed: int, device=None, mesh=None,
+                 num_threads: Optional[int] = None):
+        use_threads(num_threads)
         self.device = resolve_device(device)
         self.module = make_module(module_spec)
         self.grad_clip = grad_clip
@@ -231,9 +244,9 @@ class PPOLearner(ModuleLearner):
                  vf_loss_coeff: float = 0.5, entropy_coeff: float = 0.0,
                  num_sgd_iter: int = 6, sgd_minibatch_size: int = 128,
                  grad_clip: float = 0.5, seed: int = 0, device=None,
-                 mesh=None):
+                 mesh=None, num_threads: Optional[int] = None):
         super().__init__(module_spec, lr=lr, grad_clip=grad_clip, seed=seed,
-                         device=device, mesh=mesh)
+                         device=device, mesh=mesh, num_threads=num_threads)
         self.num_sgd_iter = num_sgd_iter
         self.minibatch_size = sgd_minibatch_size
         self.loss_kw = dict(clip_param=clip_param,
@@ -258,7 +271,7 @@ class PPOLearner(ModuleLearner):
         # 0 => whole batch; larger-than-batch clamps down (the JAX
         # minibatches() would yield nothing and silently skip the update)
         size = min(self.minibatch_size or batch.count, batch.count)
-        cols = {k: torch.as_tensor(np.asarray(batch[k])).to(
+        cols = {k: host_tensor(batch[k]).to(
             device=self.device, dtype=torch.float32) for k in LOSS_COLUMNS}
         stats = {}
         for _ in range(self.num_sgd_iter):
@@ -282,19 +295,44 @@ class PPOLearner(ModuleLearner):
         return {k: place(v, rows) for k, v in minibatch.items()}
 
 
+def _check_card_lease(num_gpus: float) -> None:
+    """A remote learner on the card needs a card lease where actors are
+    worker processes: a worker that asks no ``num_gpus`` sees no card
+    (``CUDA_VISIBLE_DEVICES=""``) and would fail inside its actor."""
+    if in_process_runtime():
+        return
+    if num_gpus <= 0:
+        raise ValueError(
+            "a remote learner on the card runs in a worker process, which "
+            "sees no card without a lease: set "
+            "resources(learner_num_gpus=...) above 0, or device='cpu'")
+    have = rt.cluster_resources().get("GPU", 0.0)
+    if have < num_gpus:
+        raise ValueError(
+            f"learner_num_gpus={num_gpus} asks more cards than the cluster "
+            f"counts ({have})")
+
+
 class LearnerGroup:
     """One learner, local or remote (parity: learner_group.py:48), ported
     from ``ray_tpu/rl/learner.py``. The remote mode puts the learner in its
-    own actor holding ``num_gpus``; weight broadcast to rollout workers goes
-    through the object store. ``learner_kwargs["device"]`` (``None`` = the
-    card) is resolved here, before any actor exists, so a machine without a
-    card raises at once."""
+    own actor holding one CPU and ``num_gpus``; weight broadcast to rollout
+    workers goes through the object store. ``learner_kwargs["device"]``
+    (``None`` = the card) is resolved here, before any actor exists, so a
+    machine without a card raises at once, and so does a remote learner on
+    the card that would start in a worker process without one."""
 
     def __init__(self, learner_cls, learner_kwargs: dict, *,
                  remote: bool = False, num_gpus: float = 0.0):
-        resolve_device(learner_kwargs.get("device"))
+        device = resolve_device(learner_kwargs.get("device"))
         self.remote = remote
         if remote:
+            if device.type == "cuda":
+                _check_card_lease(num_gpus)
+            if not in_process_runtime():
+                # one torch thread for the actor's one CPU, as a sampler's
+                # (algorithm.sampler_placement)
+                learner_kwargs = {**learner_kwargs, "num_threads": 1}
             cls = rt.remote(learner_cls)
             self.actor = cls.options(num_cpus=1, num_gpus=num_gpus).remote(
                 **learner_kwargs)
@@ -310,6 +348,12 @@ class LearnerGroup:
         if self.remote:
             return rt.get(self.actor.get_weights.remote(), timeout=600)
         return self.local.get_weights()
+
+    def set_weights(self, weights) -> None:
+        if self.remote:
+            rt.get(self.actor.set_weights.remote(weights), timeout=600)
+        else:
+            self.local.set_weights(weights)
 
     def shutdown(self):
         if self.remote:

@@ -8,6 +8,7 @@ together), and GAE computed vectorized over the [T, N] rollout on the host.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -36,6 +37,24 @@ def compute_gae(rewards, values, dones, last_value, gamma: float,
     return adv, adv + values
 
 
+def use_threads(num_threads: Optional[int]) -> None:
+    """Set this process's torch intra-op threads, unless ``None``: a sampling
+    actor in a worker process takes one a CPU it holds
+    (``algorithm.sampler_placement``)."""
+    if num_threads is not None:
+        torch.set_num_threads(num_threads)
+
+
+def where(device) -> dict:
+    """Where a sampling actor runs: its process, the cards the process may
+    see (``CUDA_VISIBLE_DEVICES``), whether it made a CUDA context, its
+    device and torch's intra-op threads."""
+    return {"pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES"),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "device": str(device), "threads": torch.get_num_threads()}
+
+
 def place_params(params, module, device: torch.device):
     """Weights for ``module`` on ``device``: a numpy tree in the JAX
     package's layout (what either stack's ``PPOLearner.get_weights``
@@ -49,11 +68,12 @@ def place_params(params, module, device: torch.device):
 class RolloutWorker:
     """One sampling worker: the env on the host, the policy forward on
     ``device`` (``None`` = the card; ``"cpu"`` as the JAX package's CPU
-    rollout actors)."""
+    rollout actors), with ``num_threads`` torch threads if given."""
 
     def __init__(self, env: Any, module_spec: dict, rollout_length: int,
                  num_envs: int, gamma: float, lam: float, seed: int = 0,
-                 device=None):
+                 device=None, num_threads: Optional[int] = None):
+        use_threads(num_threads)
         self.device = resolve_device(device)
         self.env = make_env(env, num_envs=num_envs, seed=seed)
         self.module = make_module(module_spec)
@@ -135,3 +155,6 @@ class RolloutWorker:
 
     def ping(self) -> str:
         return "pong"
+
+    def where(self) -> dict:
+        return where(self.device)

@@ -27,6 +27,8 @@ import threading
 import traceback
 from typing import Any, Callable, Dict, List, Optional
 
+from ray_tpu_torch.core.api import in_process_runtime
+
 
 class RayTrainWorker:
     """Actor hosting one rank of the training gang."""
@@ -118,13 +120,6 @@ def _accepts_config(fn: Callable) -> bool:
     except (TypeError, ValueError):
         return False
     return len(sig.parameters) >= 1
-
-
-def in_process_runtime() -> bool:
-    """Whether the API's runtime is the in-process one (``init()``)."""
-    from ray_tpu_torch.core.api import _global_runtime
-    from ray_tpu_torch.core.runtime_local import LocalRuntime
-    return isinstance(_global_runtime(), LocalRuntime)
 
 
 def check_gang_runtime(num_workers: int) -> None:

@@ -113,6 +113,15 @@ class Victim:
         return "pong"
 
 
+@rt.remote
+class SlowStart:
+    def __init__(self, s):
+        time.sleep(s)
+
+    def getpid(self):
+        return os.getpid()
+
+
 @rt.remote(max_restarts=1, max_task_retries=-1)
 class Phoenix:
     def __init__(self):
@@ -299,6 +308,24 @@ class TestClusterRuntimeCases:
         time.sleep(0.5)
         with pytest.raises((rt.TaskError, rt.ActorError, rt.ActorDiedError)):
             rt.get(v.ping.remote(), timeout=10)
+
+    def test_actor_killed_while_created_stays_dead(self, cluster):
+        """A kill that lands while the worker still runs ``__init__`` (no
+        address to send it to yet) keeps the actor DEAD once ``__init__``
+        ends, and its worker leaves no live actor behind."""
+        v = SlowStart.remote(1.5)
+        time.sleep(0.3)
+        rt.kill(v)
+        hex_id = v.actor_id.hex()
+
+        def state():
+            return {a["actor_id"]: a["state"]
+                    for a in cluster.conductor.rpc_list_actors()}[hex_id]
+        assert state() == "DEAD"
+        time.sleep(3.0)     # __init__ has ended and reported its start
+        assert state() == "DEAD"
+        with pytest.raises((rt.TaskError, rt.ActorError, rt.ActorDiedError)):
+            rt.get(v.getpid.remote(), timeout=10)
 
     def test_actor_restart(self, cluster):
         # The actor process is killed EXTERNALLY; with max_task_retries=-1

@@ -854,10 +854,11 @@ def test_replica_gauge_drives_the_autoscaler_from_the_metrics_kv(cluster):
 def test_ring_events_of_serve_reach_the_processes_that_emit_them(
         cluster):
     """Each serve event kind in the ring of the process that emits it: the
-    proxy's requests and sheds, the controller's drain and the replica's
-    batch flush in the conductor's event store (from processes that are
+    proxy's requests and sheds, the controller's drain and the replicas'
+    batch flushes in the conductor's event store (from processes that are
     not the driver), the handle's retry and timeout in the driver's own
-    ring."""
+    ring. The replicas are every one the controller started, the
+    replacement of the killed one too."""
     from ray_tpu_torch import config
     from ray_tpu_torch.util import events
     conductor = core_api._global_runtime().conductor
@@ -879,7 +880,9 @@ def test_ring_events_of_serve_reach_the_processes_that_emit_them(
     with pytest.raises(rt.GetTimeoutError):
         rt.get(held, timeout=0.2)
     # retries in the driver: calls routed to a killed replica that the
-    # handle's routing view still lists
+    # handle's routing view still lists (the view is taken just before the
+    # kill, and a view under a second old is not fetched again)
+    handle._refresh(force=True)
     victim = handle._replicas[0]
     rt.kill(victim)
     deadline = time.time() + 30
@@ -892,6 +895,11 @@ def test_ring_events_of_serve_reach_the_processes_that_emit_them(
     refs = [handle.remote(i) for i in range(12)]
     assert rt.get(refs, timeout=TIMEOUT) == [i + 1 for i in range(12)]
     assert any(r._retried for r in refs)
+    # a retried call may reach the replica the controller started in the
+    # victim's place: every replica it started may flush a batch
+    handle._refresh(force=True)
+    replica_pids |= {rt.get(r.handle_request.remote("pid", ((), {})),
+                            timeout=TIMEOUT) for r in handle._replicas}
     serve.delete("Flusher")   # a drain in the controller
     mine = {e[1] for e in events.snapshot() if e[1].startswith("serve.")}
     kinds = {"serve.request", "serve.shed", "serve.drain",
