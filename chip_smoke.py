@@ -103,7 +103,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (TF32 off) against the CPU: logits, values, final states, logp and
    entropy of fixed actions, one PPOLearner.update (MLP, CNN) or the
    gradients of a loss over a sequence (LSTM, GTrXL).
-16. PPO through its drivers: ``ray_tpu_torch.init()``, then
+16. PPO through its drivers: ``ray_tpu_torch.init(local_mode=True)``, then
    ``PPOConfig()`` at phase 13's gate settings, built with ``device`` left
    at ``None``: the rollout workers and the learner run as actors of the
    port's in-process runtime, their parameters on the card. Train until the
@@ -192,14 +192,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``PPOLearner.update`` with the mesh within 1e-5 of ``mesh=None`` (f32).
    The phase destroys its process group.
 24. Serve over HTTP (``ray_tpu_torch.serve`` on the port's in-process
-   runtime): the flagship (phase 3's configuration, bf16, weights drawn on
-   the card from a seed) behind ``@serve.deployment(num_replicas=1)``,
-   whose one ``@serve.batch(max_batch_size=8)`` method left-pads the
-   prompts, calls ``generate`` (prompts of 128 tokens, 256 greedy tokens)
-   and records each batch's prompts in order; started by ``serve.run(...,
-   http_host="127.0.0.1")`` on an ephemeral port. 8 client threads each
-   POST one seeded prompt at once, for one warm round and then 4 timed
-   rounds. Every response must be 200; each response's tokens must equal
+   runtime, ``init(local_mode=True)``): the flagship (phase 3's
+   configuration, bf16, weights drawn on the card from a seed) behind
+   ``@serve.deployment(num_replicas=1)``, whose one
+   ``@serve.batch(max_batch_size=8)`` method left-pads the prompts, calls
+   ``generate`` (prompts of 128 tokens, ``HTTP_NEW`` = 64 greedy tokens,
+   cut from 256) and records each batch's prompts in order; started by
+   ``serve.run(..., http_host="127.0.0.1")`` on an ephemeral port. 8
+   client threads each POST one seeded prompt at once, for one warm round
+   and then 4 timed rounds. Every response must be 200; each response's tokens must equal
    those of a direct ``generate`` of the batch the deployment formed, in
    its row order; the forward kernel must launch n_layers times per
    ``generate`` call the deployment made (and no backward kernel); after
@@ -318,8 +319,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    module-level deployment with ``ray_actor_options={"num_gpus": 1}``,
    draws the flagship's weights from seed 24 on its replica's card and
    serves phase 24's traffic (8 clients x 5 rounds, 1 warm, seed-24
-   prompts of 128 tokens, 256 new tokens) behind the same ``@serve.batch``.
-   Every status must be 200, each prompt in exactly one batch, every
+   prompts of 128 tokens, ``HTTP_NEW`` = 64 new tokens) behind the same
+   ``@serve.batch``. Every status must be 200, each prompt in exactly one batch, every
    answer equal to the driver's direct ``generate`` of its batch with the
    same weights (their f64 digests equal), and the replica must count
    ``n_layers`` forward launches a ``generate``. Prints requests/s,
@@ -354,10 +355,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    errors and no actor stay ALIVE. (d) DQN, TD3 and ES: one ``train()``
    each, finite stats, the collectors and ES workers CPU processes.
    Teardown leaves no process, segment or extra card context.
+32. The head's control surface (``init()``, ``python -m ray_tpu_torch``,
+   ``client://``, jobs, the state API, the dashboard). ``init()`` with no
+   address must start a head in this process whose
+   ``cluster_resources()["GPU"]`` is 1.0 and whose node
+   ``state.list_nodes()`` shows; ``shutdown()`` leaves no process or
+   segment. Then ``python -m ray_tpu_torch start --head --port 0`` with a
+   ``TMPDIR`` of its own, ``client-server``, and a driver script that
+   connects with ``init("client://...")``: a ``num_gpus=1`` actor
+   (``ControlLM``) draws phase 3's flagship from seed 32 on its card and
+   generates for 8 seeded prompts of 128 tokens, 32 greedy tokens (cut
+   from 256: the phase measures the path, not the decode loop); its
+   tokens must equal the driver's direct ``generate`` of the same weights
+   and prompts, with 10 forward launches in that worker; then 200 round
+   trips of a trivial task through the client. ``job submit --follow``
+   runs a script that connects with ``init(address=os.environ[
+   "RAY_TPU_TORCH_ADDRESS"])`` and runs the same ``generate`` in a
+   ``num_gpus=1`` task (``control_generate_task``): the job must end
+   ``SUCCEEDED`` with the driver's token digest in its logs and 10 launches
+   in its worker. ``state.list_actors()`` must show the client's actor
+   DEAD after its kill, ``list_jobs()`` the job, the dashboard's
+   ``/api/cluster`` and ``status`` one GPU; ``stop`` must leave no process,
+   segment or extra card context. Prints each step's seconds, the head's
+   start, the GPU worker's start behind the client and the job, the
+   client's round trips/s and both ``generate`` s' tokens/s beside the
+   driver's.
 
 No flash kernel runs on phases 13-22 and 31 (the JAX RL stack reaches no
 Pallas kernel): each path's counts must stay 0, as they must for ring,
-Ulysses and the PPO learner in phase 23. Phases 17-31 print their
+Ulysses and the PPO learner in phase 23. Phases 17-32 print their
 seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -2021,7 +2047,7 @@ def phase_ppo_drivers(card, hand):
     # the hand loop once more in the process's present state (phase 13's
     # profiled update and later phases ran since), for a like-for-like ratio
     before, _, _, _ = _ppo_cartpole(None, "ppo-hand-before-drivers")
-    rt.init()
+    rt.init(local_mode=True)
     _reset_launch_counts()
     try:
         algo = _gate_config().build()
@@ -2420,7 +2446,7 @@ def phase_async_drivers(card):
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl.algorithms import A2CConfig, APPOConfig, ImpalaConfig
     out = {}
-    rt.init()
+    rt.init(local_mode=True)
     _reset_launch_counts()
     try:
         # APPO at its gate, with its driver's time split
@@ -2621,7 +2647,7 @@ def phase_offpolicy(card):
     from ray_tpu_torch.rl.algorithms.dqn import TRANSITION
     from ray_tpu_torch.rl.learner import batch_to_device
     out = {}
-    rt.init()
+    rt.init(local_mode=True)
     _reset_launch_counts()
     try:
         # DQN at tests/test_rl.py:116's settings, 3 iterations
@@ -2960,7 +2986,7 @@ def phase_rest_of_rl(card):
                                               TwoStepCoopEnv)
     from ray_tpu_torch.rl.rollout import place_params
     out = {}
-    rt.init()
+    rt.init(local_mode=True)
     _reset_launch_counts()
     try:
         # QMIX at tests/test_rl_breadth.py:29's settings
@@ -3482,6 +3508,10 @@ def _ppo_on_mesh(card, mesh):
 HTTP_CLIENTS = 8
 HTTP_ROUNDS = 5          # one warm round, then the timed ones
 HTTP_BATCH_WAIT_S = 0.1  # the @serve.batch window
+# greedy tokens a request, cut from the serve cell's 256 (phases 24 and
+# 30): each is a host-bound decode loop, and the whole script must stay
+# well inside its time limit (PERF.md, "control-surface")
+HTTP_NEW = 64
 
 
 def _lm_deployment(serve, cfg, seed, new):
@@ -3548,10 +3578,10 @@ def phase_http_serve(card, direct_tokens_per_s):
     from ray_tpu_torch.models import generate
     from ray_tpu_torch.serve import http_proxy
     from ray_tpu_torch.serve.controller import Replica
-    cfg, prompt_len, new = flagship_cfg(), 128, 256
+    cfg, prompt_len, new = flagship_cfg(), 128, HTTP_NEW
     prompts = np.random.default_rng(24).integers(
         0, cfg.vocab_size, (HTTP_ROUNDS, HTTP_CLIENTS, prompt_len)).tolist()
-    rt.init()
+    rt.init(local_mode=True)
     try:
         handle = serve.run(_lm_deployment(serve, cfg, 24, new).bind(),
                            http_host="127.0.0.1")
@@ -5176,7 +5206,7 @@ def phase_serve_cluster(card, http_run, cgraph_run):
     from ray_tpu_torch.dag import channel
     from ray_tpu_torch.models import transformer_init
     t_phase = time.perf_counter()
-    cfg, prompt_len, new = flagship_cfg(), 128, 256
+    cfg, prompt_len, new = flagship_cfg(), 128, HTTP_NEW
     prompts = np.random.default_rng(SC_SEED).integers(
         0, cfg.vocab_size, (HTTP_ROUNDS, HTTP_CLIENTS, prompt_len)).tolist()
     params = transformer_init(
@@ -5718,6 +5748,415 @@ def phase_rl_cluster(card, drivers_run, cpu_workers_run):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 32: the head's control surface
+# ---------------------------------------------------------------------------
+
+CS_SEED = 32              # the weights and the prompts
+CS_BATCH, CS_PROMPT = 8, 128
+CS_NEW = 32               # new tokens, cut from phase 3's 256 (PERF.md)
+CS_ROUND_TRIPS = 200      # trivial tasks through the client, one at a time
+CS_LIMIT_S = 600          # any one CLI command, client or job
+
+
+def token_digest(tokens):
+    """A short hash of greedy tokens (int64, C order)."""
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(
+        np.asarray(tokens), dtype=np.int64).tobytes()).hexdigest()[:16]
+
+
+def _control_generate(params, cfg, prompt, new):
+    """One warm-up, then the counted, timed ``generate``: (tokens, flash
+    launches (fwd, dkv, dq, delta), tokens/s in this process)."""
+    from ray_tpu_torch.models import generate
+    prompt = torch.from_numpy(np.array(prompt)).cuda()
+    generate(params, prompt, cfg, max_new_tokens=4)
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    tokens = generate(params, prompt, cfg, max_new_tokens=new)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (tokens.cpu().numpy(), _launch_counts(),
+            prompt.shape[0] * new / seconds)
+
+
+def _control_weights(seed):
+    """Phase 3's flagship drawn on this process's card from ``seed``, and
+    the wall clock at the start and the seconds of CUDA and the weights."""
+    import os
+
+    from ray_tpu_torch.models import transformer_init
+    started = time.time()
+    t0 = time.perf_counter()
+    torch.empty(1, device="cuda")
+    torch.cuda.synchronize()
+    cfg = flagship_cfg()
+    params = transformer_init(torch.Generator(device="cuda").manual_seed(seed),
+                              cfg)
+    torch.cuda.synchronize()
+    return cfg, params, {"started": started, "pid": os.getpid(),
+                         "cuda_and_weights_s": time.perf_counter() - t0}
+
+
+class ControlLM:
+    """The flagship in a ``num_gpus=1`` actor that a ``client://`` driver
+    creates (the client imports this module as ``chip_smoke``)."""
+
+    def __init__(self, seed):
+        self.cfg, self.params, self.start = _control_weights(seed)
+
+    def generate(self, prompt, new):
+        return _control_generate(self.params, self.cfg, prompt, new) + (
+            self.start,)
+
+
+def control_generate_task(seed, prompt, new):
+    """A submitted job's ``num_gpus=1`` task: the weights, then the same
+    ``generate``."""
+    cfg, params, start = _control_weights(seed)
+    return _control_generate(params, cfg, prompt, new) + (start,)
+
+
+def control_echo(x):
+    return x
+
+
+_CS_CLIENT = """
+import json
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+import ray_tpu_torch as rt
+
+if __name__ == "__main__":
+    t0 = time.perf_counter()
+    rt.init(address="client://" + sys.argv[1])
+    connect_s = time.perf_counter() - t0
+    prompt = np.load(sys.argv[2])
+    created = time.time()
+    t0 = time.perf_counter()
+    actor = rt.remote(num_gpus=1)(cs.ControlLM).remote(cs.CS_SEED)
+    tokens, launches, tps, start = rt.get(
+        actor.generate.remote(prompt, cs.CS_NEW), timeout=cs.CS_LIMIT_S)
+    first_s = time.perf_counter() - t0
+    echo = rt.remote(cs.control_echo)
+    rt.get(echo.remote(0), timeout=120)
+    t0 = time.perf_counter()
+    for i in range(cs.CS_ROUND_TRIPS):
+        assert rt.get(echo.remote(i), timeout=120) == i
+    trips = cs.CS_ROUND_TRIPS / (time.perf_counter() - t0)
+    np.save(sys.argv[3], tokens)
+    print("CLIENT " + json.dumps({
+        "actor_id": actor.actor_id.hex(), "launches": list(launches),
+        "tokens_per_s": tps, "connect_s": connect_s, "first_call_s": first_s,
+        "spawn_s": start["started"] - created,
+        "cuda_and_weights_s": start["cuda_and_weights_s"],
+        "pid": start["pid"], "round_trips_per_s": trips}), flush=True)
+    rt.kill(actor)
+    rt.shutdown()
+"""
+
+_CS_JOB = """
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+import ray_tpu_torch as rt
+
+if __name__ == "__main__":
+    rt.init(address=os.environ["RAY_TPU_TORCH_ADDRESS"])
+    prompt = np.load(sys.argv[1])
+    submitted = time.time()
+    t0 = time.perf_counter()
+    tokens, launches, tps, start = rt.get(
+        rt.remote(num_gpus=1)(cs.control_generate_task).remote(
+            cs.CS_SEED, prompt, cs.CS_NEW), timeout=cs.CS_LIMIT_S)
+    print("JOB " + json.dumps({
+        "digest": cs.token_digest(tokens), "launches": list(launches),
+        "tokens_per_s": tps, "first_call_s": time.perf_counter() - t0,
+        "spawn_s": start["started"] - submitted,
+        "cuda_and_weights_s": start["cuda_and_weights_s"],
+        "pid": start["pid"]}), flush=True)
+    rt.shutdown()
+"""
+
+
+def _cli(env, *argv):
+    """``python -m ray_tpu_torch <argv>``, which must exit 0: its stdout."""
+    out = subprocess.run([sys.executable, "-m", "ray_tpu_torch", *argv],
+                         env=env, capture_output=True, text=True,
+                         timeout=CS_LIMIT_S, cwd=env["CS_REPO"])
+    check(out.returncode == 0, f"control: `{' '.join(argv)}` exited "
+          f"{out.returncode}:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    return out.stdout
+
+
+def _cli_start(env, want, *argv):
+    """A long-running ``python -m ray_tpu_torch <argv>``, its output up to
+    the line that holds ``want``, and the seconds until that line."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", *argv],
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=env["CS_REPO"])
+    lines = []
+    while True:
+        line = proc.stdout.readline()
+        if not line or time.perf_counter() - t0 > CS_LIMIT_S:
+            proc.kill()
+            proc.wait()
+            check(False, f"control: `{' '.join(argv)}` printed no "
+                  f"{want!r}:\n{''.join(lines)[-3000:]}")
+        lines.append(line)
+        if want in line:
+            return proc, lines, time.perf_counter() - t0
+
+
+def _tagged(text, tag):
+    """The JSON object of the line that starts with ``tag``."""
+    for line in text.splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    check(False, f"control: no {tag} line in:\n{text[-3000:]}")
+
+
+def _until_clean(prefixes, apps_before, limit_s=30.0):
+    """Wait until no process of the port's clusters, no store segment of
+    ``prefixes`` and no extra card context is left."""
+    import os
+    deadline = time.monotonic() + limit_s
+    while True:
+        left = _session_processes()
+        segs = [f for f in os.listdir("/dev/shm")
+                if any(f.startswith(p) for p in prefixes)]
+        apps = _compute_apps()
+        if not (left or segs or len(apps) > len(apps_before)) \
+                or time.monotonic() > deadline:
+            return left, segs, apps
+        time.sleep(0.2)
+
+
+def phase_control_surface(card):
+    """Phase 32: ``init()`` starts a head; then a head from the CLI drives
+    the flagship on the card through a ``client://`` driver and a submitted
+    job, read back through the state API, the dashboard and the CLI."""
+    import os
+    import shutil
+    import tempfile
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.models import generate, transformer_init
+    tag, steps = "control", {}
+    t_phase = time.perf_counter()
+    apps_before = _compute_apps()
+
+    # 1. init() without an address starts a head in this process
+    t0 = time.perf_counter()
+    head = rt.init()
+    try:
+        steps["init_head_s"] = time.perf_counter() - t0
+        res = rt.cluster_resources()
+        nodes = state.list_nodes()
+        prefix = head._owned_daemon.store_prefix
+        print(f"[{tag}] init() started a head in {steps['init_head_s']:.2f} "
+              f"s: cluster_resources() {res}; list_nodes() "
+              f"{[(n['state'], n['is_head_node'], n['resources_total']) for n in nodes]}"
+              f" on {card}", flush=True)
+        check(type(head).__name__ == "ClusterRuntime"
+              and res.get("GPU") == 1.0, f"[{tag}] init() gave "
+              f"{type(head).__name__} counting {res.get('GPU')} GPUs")
+        check(len(nodes) == 1 and nodes[0]["is_head_node"]
+              and nodes[0]["state"] == "ALIVE",
+              f"[{tag}] list_nodes() after init(): {nodes}")
+    finally:
+        rt.shutdown()
+    left, segs, apps = _until_clean([prefix], apps_before)
+    print(f"[{tag}] after shutdown(): session processes {left}, segments "
+          f"{segs}", flush=True)
+    check(not left and not segs, f"[{tag}] shutdown() of the init() head "
+          f"left processes {left}, segments {segs}")
+
+    # the driver's own flagship, prompts and direct generate
+    cfg = flagship_cfg()
+    params = transformer_init(
+        torch.Generator(device="cuda").manual_seed(CS_SEED), cfg)
+    prompt = np.random.default_rng(CS_SEED).integers(
+        0, cfg.vocab_size, (CS_BATCH, CS_PROMPT))
+    gp = torch.from_numpy(prompt).cuda()
+    generate(params, gp, cfg, max_new_tokens=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = generate(params, gp, cfg, max_new_tokens=CS_NEW).cpu().numpy()
+    d_tps = CS_BATCH * CS_NEW / (time.perf_counter() - t0)
+    del params, gp
+    torch.cuda.empty_cache()
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # the CLI's own TMPDIR, short: its sessions' socket paths must fit
+    # AF_UNIX's 108 bytes
+    work = tempfile.mkdtemp(prefix="cs32")
+    env = dict(os.environ, TMPDIR=work, CS_REPO=repo,
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    paths = {name: os.path.join(work, name) for name in (
+        "client.py", "job.py", "prompt.npy", "client_tokens.npy")}
+    with open(paths["client.py"], "w") as f:
+        f.write(_CS_CLIENT)
+    with open(paths["job.py"], "w") as f:
+        f.write(_CS_JOB)
+    np.save(paths["prompt.npy"], prompt)
+    head_proc = proxy_proc = None
+    connected = False
+    try:
+        # 2. a head from the CLI, its client proxy and a client:// driver
+        head_proc, lines, steps["cli_head_s"] = _cli_start(
+            env, "Dashboard:", "start", "--head", "--port", "0",
+            "--dashboard-port", "0")
+        address = next(ln.split("Address:")[1].strip() for ln in lines
+                       if "Address:" in ln)
+        dash_url = lines[-1].split("Dashboard:")[1].strip()
+        print(f"[{tag}] `python -m ray_tpu_torch start --head` up in "
+              f"{steps['cli_head_s']:.2f} s at {address}, dashboard "
+              f"{dash_url} on {card}", flush=True)
+        proxy_proc, lines, steps["client_server_s"] = _cli_start(
+            env, "listening on", "client-server", "--port", "0")
+        proxy = lines[-1].split("client://")[1].strip()
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, paths["client.py"], proxy, paths["prompt.npy"],
+             paths["client_tokens.npy"]], env=env, capture_output=True,
+            text=True, timeout=CS_LIMIT_S, cwd=work)
+        steps["client_s"] = time.perf_counter() - t0
+        check(out.returncode == 0, f"[{tag}] the client driver exited "
+              f"{out.returncode}:\n{out.stdout[-3000:]}\n"
+              f"{out.stderr[-3000:]}")
+        client = _tagged(out.stdout, "CLIENT")
+        tokens = np.load(paths["client_tokens.npy"])
+        rows = int((tokens != want).any(1).sum())
+        print(f"[{tag}] client:// driver: num_gpus=1 actor (pid "
+              f"{client['pid']}) generate {CS_BATCH}x{CS_NEW}: {rows} rows "
+              f"differ from the driver's direct generate; flash launches "
+              f"{tuple(client['launches'])}; {client['tokens_per_s']:.1f} "
+              f"tokens/s in the worker (driver's direct generate "
+              f"{d_tps:.1f}); the GPU worker's start behind the client: "
+              f"spawn {client['spawn_s']:.2f} s, CUDA and weights "
+              f"{client['cuda_and_weights_s']:.2f} s, first call "
+              f"{client['first_call_s']:.2f} s; connect "
+              f"{client['connect_s']:.3f} s; {client['round_trips_per_s']:.1f}"
+              f" round trips/s of a trivial task through the client on "
+              f"{card}", flush=True)
+        check(tokens.shape == want.shape and rows == 0,
+              f"[{tag}] the client's tokens differ from the driver's direct "
+              f"generate in {rows} rows")
+        check(tuple(client["launches"]) == (cfg.n_layers, 0, 0, 0),
+              f"[{tag}] the client's worker launched {client['launches']}, "
+              f"want ({cfg.n_layers}, 0, 0, 0)")
+
+        # 3. a submitted job runs the same generate in a num_gpus=1 task
+        t0 = time.perf_counter()
+        out = _cli(env, "job", "submit", "--follow", "--", sys.executable,
+                   paths["job.py"], paths["prompt.npy"])
+        steps["job_s"] = time.perf_counter() - t0
+        job = _tagged(out, "JOB")
+        sid = out.split("submitted job ")[1].split()[0]
+        jobs = JobSubmissionClient(address)
+        status, logs = jobs.get_job_status(sid), jobs.get_job_logs(sid)
+        print(f"[{tag}] job {sid}: {status}; its task (pid {job['pid']}) "
+              f"printed digest {job['digest']} (the driver's "
+              f"{token_digest(want)}); flash launches "
+              f"{tuple(job['launches'])}; {job['tokens_per_s']:.1f} tokens/s "
+              f"in the worker; the GPU worker's start behind the job: spawn "
+              f"{job['spawn_s']:.2f} s, CUDA and weights "
+              f"{job['cuda_and_weights_s']:.2f} s, first call "
+              f"{job['first_call_s']:.2f} s; `job submit --follow` "
+              f"{steps['job_s']:.2f} s on {card}", flush=True)
+        check(status == "SUCCEEDED" and job["digest"] == token_digest(want)
+              and job["digest"] in logs,
+              f"[{tag}] job {sid} {status}, digest {job['digest']} (want "
+              f"{token_digest(want)}), in its logs: {job['digest'] in logs}")
+        check(tuple(job["launches"]) == (cfg.n_layers, 0, 0, 0),
+              f"[{tag}] the job's worker launched {job['launches']}, want "
+              f"({cfg.n_layers}, 0, 0, 0)")
+
+        # 4. the state API, the dashboard and the CLI
+        t0 = time.perf_counter()
+        rt.init(address=address)
+        connected = True
+        actors = {a["actor_id"]: a for a in state.list_actors()}
+        listed = [j.submission_id for j in jobs.list_jobs()]
+        with urllib.request.urlopen(dash_url + "/api/cluster",
+                                    timeout=60) as r:
+            total = json.loads(r.read())["total"]
+        rt.shutdown()
+        connected = False
+        status_out = _cli(env, "status")
+        steps["reads_s"] = time.perf_counter() - t0
+        mine = actors.get(client["actor_id"], {})
+        print(f"[{tag}] state.list_actors(): the client's actor "
+              f"{mine.get('class_name')} {mine.get('state')}; list_jobs() "
+              f"{listed}; dashboard /api/cluster total {total}; `status`:\n"
+              + status_out.rstrip(), flush=True)
+        check(mine.get("state") == "DEAD", f"[{tag}] the client's actor is "
+              f"{mine.get('state')} after its kill")
+        check(sid in listed and total.get("GPU") == 1.0
+              and "GPU: " in status_out and "/ 1" in status_out.split(
+                  "GPU: ")[1].splitlines()[0],
+              f"[{tag}] list_jobs {listed}, dashboard {total}, status "
+              f"{status_out!r}")
+    finally:
+        if connected:
+            rt.shutdown()
+        t0 = time.perf_counter()
+        if proxy_proc is not None:
+            proxy_proc.terminate()
+            proxy_proc.wait(timeout=60)
+        if head_proc is not None:
+            # 5. stop: the head, its daemon, workers and store
+            stop_out = subprocess.run(
+                [sys.executable, "-m", "ray_tpu_torch", "stop"], env=env,
+                capture_output=True, text=True, timeout=CS_LIMIT_S,
+                cwd=repo)
+            try:
+                head_proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                head_proc.kill()
+                head_proc.wait()
+            print(f"[{tag}] `python -m ray_tpu_torch stop`: "
+                  f"{stop_out.stdout.strip()} (exit {stop_out.returncode})",
+                  flush=True)
+    left, segs, apps = _until_clean(["rtpt-"], apps_before)
+    steps["stop_s"] = time.perf_counter() - t0
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[{tag}] after stop: session processes {left}, segments {segs}, "
+          f"card contexts {len(apps)} (before the phase {len(apps_before)})",
+          flush=True)
+    check(stop_out.returncode == 0 and not left and not segs
+          and len(apps) <= len(apps_before),
+          f"[{tag}] stop left processes {left}, segments {segs}, contexts "
+          f"{apps}")
+    seconds = time.perf_counter() - t_phase
+    print(f"[{tag}] step seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+          + f"; phase seconds {seconds:.1f} on {card}", flush=True)
+    launches = tuple(a + b for a, b in zip(client["launches"],
+                                            job["launches"]))
+    return dict(launches=launches, steps=steps, seconds=seconds,
+                client=client, job=job, direct_tokens_per_s=d_tps,
+                new_tokens=CS_NEW)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -5818,6 +6257,10 @@ def main() -> int:
     runs["rl-cluster"] = phase_rl_cluster(card, runs["ppo_drivers"],
                                           runs["ppo_cartpole_cpu_workers"])
     print(f"[phase] rl cluster: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["control-surface"] = phase_control_surface(card)
+    print(f"[phase] control surface: {time.perf_counter() - t0:.1f} s",
           flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 

@@ -17,7 +17,7 @@ is queued, is in ROADMAP.md.
 
     import ray_tpu_torch as rt
 
-    rt.init()
+    rt.init(local_mode=True)
     @rt.remote
     def f(x): return x + 1
     rt.get(f.remote(1))   # -> 2

@@ -11,7 +11,7 @@ Namespace swept (everything this framework creates is `rtpt-`-prefixed):
   /dev/shm/<prefix>*        — object segments; <prefix>owner names the
                               store pid (written by shmstored at startup)
   /tmp/rtpt-session-*       — session dirs; daemon.pid names the owner
-  /tmp/ray_tpu_torch/session-*    — CLI head session dirs (same pidfile)
+  /tmp/rtpt-head-<port>     — CLI head session dirs (same pidfile)
   /tmp/rtpt-ckpt-*,
   /tmp/rtpt-algo-*          — checkpoint scratch; owner.pid or age-based
 
@@ -160,30 +160,32 @@ def sweep_tmp(now: float | None = None,
                 continue
             shutil.rmtree(d, ignore_errors=True)
             removed.append(d)
-    # CLI head sessions (/tmp/ray_tpu_torch/session-<port>) persist the conductor
+    # CLI head sessions (/tmp/rtpt-head-<port>) persist the conductor
     # journal ON PURPOSE — a head restarted on the same port recovers from
     # it (gcs_init_data.h role). Reclaim only the ephemeral state of dead
     # sessions: spill files and stale sockets, never conductor/.
-    cli_root = os.path.join(tmp, "ray_tpu_torch")
-    if os.path.isdir(cli_root):
-        for name in os.listdir(cli_root):
-            d = os.path.join(cli_root, name)
-            if not (name.startswith("session-") and os.path.isdir(d)):
-                continue
-            pid = _read_pid(os.path.join(d, "daemon.pid"))
-            if pid > 0 and _pid_alive(pid):
-                continue
-            spill = os.path.join(d, "spill")
-            if os.path.isdir(spill):
-                shutil.rmtree(spill, ignore_errors=True)
-                removed.append(spill)
-            for f in os.listdir(d):
-                if f.endswith(".sock"):
-                    try:
-                        os.unlink(os.path.join(d, f))
-                        removed.append(os.path.join(d, f))
-                    except OSError:
-                        pass
+    try:
+        heads = [d for d in os.listdir(tmp) if d.startswith("rtpt-head-")]
+    except OSError:
+        heads = []
+    for name in heads:
+        d = os.path.join(tmp, name)
+        if not os.path.isdir(d):
+            continue
+        pid = _read_pid(os.path.join(d, "daemon.pid"))
+        if pid > 0 and _pid_alive(pid):
+            continue
+        spill = os.path.join(d, "spill")
+        if os.path.isdir(spill):
+            shutil.rmtree(spill, ignore_errors=True)
+            removed.append(spill)
+        for f in os.listdir(d):
+            if f.endswith(".sock"):
+                try:
+                    os.unlink(os.path.join(d, f))
+                    removed.append(os.path.join(d, f))
+                except OSError:
+                    pass
     return removed
 
 

@@ -4,15 +4,18 @@ from ``ray_tpu/core/api.py``.
 Role parity: python/ray/_private/worker.py (init:1115, get:2405, put, wait)
 and the @ray.remote decorator. The module holds the process-global runtime.
 
+- ``init()`` starts a head in this process (a conductor and the head
+  node's daemon, ``ClusterRuntime(address=None)``) and connects to it, as
+  the JAX package's ``init()`` does: tasks and actors run in worker
+  processes, objects live in the node's shm store, and the card counts as
+  ``"GPU"``.
 - ``init(address="host:port")`` connects a ``ClusterRuntime`` to a running
-  conductor (a ``cluster_utils.Cluster``, or a head started by
-  ``ClusterRuntime(address=None)``): tasks and actors run in worker
-  processes, objects live in the node's shm store.
-- ``init()`` and ``init(local_mode=True)`` start the in-process runtime,
-  where the JAX package's ``init()`` starts a head (ROADMAP.md C,
-  A.5(b3)). Serve and the RL drivers run on either runtime.
-- ``client://`` raises ``NotImplementedError``: the client runtime is
-  still to port (ROADMAP.md A.5).
+  conductor (a head started by ``init()``, by ``python -m ray_tpu_torch
+  start --head`` or a ``cluster_utils.Cluster``).
+- ``init(local_mode=True)`` and ``init(address="local")`` start the
+  in-process runtime: actors are threads of this process.
+- ``init("client://host:port")`` connects a ``ClientRuntime`` to a client
+  proxy (``python -m ray_tpu_torch client-server``).
 """
 
 from __future__ import annotations
@@ -44,11 +47,15 @@ def init(address: Optional[str] = None, *,
          ignore_reinit_error: bool = False):
     """Start or connect this process's runtime.
 
-    - ``address=None``, ``address="local"`` or ``local_mode=True``: the
-      in-process thread runtime.
+    - ``address=None``: start a head (conductor and head node daemon) in
+      this process and connect to it.
+    - ``address="local"`` or ``local_mode=True``: the in-process thread
+      runtime.
     - ``address="host:port"``: connect to an existing conductor.
-    - ``client://`` raises ``NotImplementedError``. Nothing falls back to
-      the in-process runtime: a cluster that cannot be reached raises.
+    - ``address="client://host:port"``: a thin client over a client proxy.
+
+    Nothing falls back to the in-process runtime: a head that cannot start,
+    or a cluster or proxy that cannot be reached, raises.
     """
     global _runtime
     with _runtime_lock:
@@ -57,23 +64,22 @@ def init(address: Optional[str] = None, *,
                 return _runtime
             raise RuntimeError("ray_tpu_torch.init() called twice; pass "
                                "ignore_reinit_error=True to ignore.")
-        if (address or "").startswith("client://") and not local_mode:
-            raise NotImplementedError(
-                f"ray_tpu_torch.init(address={address!r}): the client "
-                "runtime is still to port (ROADMAP.md A.5). Connect to the "
-                "conductor with init(address='host:port').")
         if _system_config:
             config.set_system_config(_system_config)
-        if address not in (None, "local") and not local_mode:
+        if local_mode or address == "local":
+            from ray_tpu_torch.core.runtime_local import LocalRuntime
+            _runtime = LocalRuntime(num_cpus=num_cpus, num_gpus=num_gpus,
+                                    resources=resources)
+        elif address and address.startswith("client://"):
+            # Thin client over an in-cluster proxy (parity: ray://).
+            from ray_tpu_torch.client.runtime import ClientRuntime
+            _runtime = ClientRuntime(address, namespace=namespace)
+        else:
             from ray_tpu_torch.core.runtime_cluster import ClusterRuntime
             _runtime = ClusterRuntime(address=address, num_cpus=num_cpus,
                                       num_gpus=num_gpus,
                                       resources=resources,
                                       namespace=namespace)
-            return _runtime
-        from ray_tpu_torch.core.runtime_local import LocalRuntime
-        _runtime = LocalRuntime(num_cpus=num_cpus, num_gpus=num_gpus,
-                                resources=resources)
         return _runtime
 
 
@@ -90,21 +96,23 @@ def is_initialized() -> bool:
 
 
 def in_process_runtime() -> bool:
-    """Whether the API's runtime is the in-process one (``init()``): actors
-    are threads of this process, not worker processes. With no runtime yet
-    it is the one an implicit ``init()`` would start; asking starts none."""
+    """Whether the API's runtime is the in-process one
+    (``init(local_mode=True)``): actors are threads of this process, not
+    worker processes. With no runtime yet it is False, as the head an
+    implicit ``init()`` would start is not; asking starts none."""
     from ray_tpu_torch.core.runtime_local import LocalRuntime
-    return _runtime is None or isinstance(_runtime, LocalRuntime)
+    return isinstance(_runtime, LocalRuntime)
 
 
 def _global_runtime():
     global _runtime
     if _runtime is None:
         # Implicit init (reference parity: ray.get before ray.init starts a
-        # runtime) — but only from the MAIN thread. A background thread
+        # head) — but only from the MAIN thread. A background thread
         # reaching here is a straggler touching the API after shutdown();
-        # silently booting a fresh runtime from it leaks a runtime the real
-        # driver then trips over ("init called twice").
+        # silently booting a fresh head from it leaks a runtime the real
+        # driver then trips over ("init called twice") and burns CPU behind
+        # the user's back.
         if threading.current_thread() is not threading.main_thread():
             raise RuntimeError(
                 "ray_tpu_torch is not initialized (implicit init is "

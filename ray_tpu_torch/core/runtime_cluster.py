@@ -181,6 +181,30 @@ class TaskSubmitter:
                 for w in victims:
                     self.rt._release_lease(w)
 
+    def release_leases(self, wait_s: float = 5.0) -> None:
+        """At shutdown: drop the tasks no lease has taken yet, wait (up to
+        ``wait_s``) for the lease requests in flight, and return every
+        idle lease. A driver that ends right after its last task would
+        otherwise leave them held on their daemons: a grant that arrives
+        after it is gone, or an idle lease the reaper had no time to
+        return, and no daemon takes a lease back from a driver."""
+        deadline = time.monotonic() + wait_s
+        while True:
+            with self._lock:
+                states = list(self._keys.values())
+            pending = 0
+            for st in states:
+                with st.lock:
+                    st.queue.clear()
+                    victims = list(st.idle)
+                    st.idle.clear()
+                    pending += st.pending_leases
+                for w in victims:
+                    self.rt._release_lease(w)
+            if not pending or time.monotonic() >= deadline:
+                return
+            time.sleep(0.02)
+
     def _key_state(self, key: tuple) -> _KeyState:
         with self._lock:
             st = self._keys.get(key)
@@ -1409,7 +1433,10 @@ class ClusterRuntime:
     # tasks
     # ------------------------------------------------------------------
     def _function_blob(self, desc: FunctionDescriptor, fn) -> bytes:
-        """``fn`` pickled by import path, once per descriptor."""
+        """``fn`` pickled by import path, once per descriptor. ``bytes`` are
+        a callable pickled already (a client proxy passes its client's)."""
+        if isinstance(fn, bytes):
+            return fn
         with self._fn_lock:
             blob = self._fn_blobs.get(desc.function_id)
         if blob is None:
@@ -2004,6 +2031,10 @@ class ClusterRuntime:
         try:
             self._log_stop.set()
         except AttributeError:
+            pass
+        try:
+            self.submitter.release_leases()
+        except Exception:
             pass
         try:
             _events.stop()   # final async flush; flusher thread retires

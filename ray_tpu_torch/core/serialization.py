@@ -131,8 +131,9 @@ def _reduce_by_path(obj):
         if not path:
             raise TypeError(
                 f"cannot ship {module}.{qualname} to another process: it "
-                "was defined in an interactive __main__ with no file; "
-                "define it in a module")
+                "was defined in an interactive __main__ with no file (a "
+                "python -c body or a REPL); define it at module level in a "
+                "file")
         return (_main_global, (os.path.realpath(path), qualname))
     mod = sys.modules.get(module)
     if mod is None:

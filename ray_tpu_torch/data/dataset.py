@@ -10,7 +10,7 @@ Blocks are dicts of numpy columns (``data/block.py``) living in the object
 store as ObjectRefs; transforms are tasks (one per block) submitted through
 the normal lease path, so data processing shares the scheduler with
 everything else. It runs on either port runtime: the in-process one
-(``init()``) and the cluster one (``init(address=...)``).
+(``init(local_mode=True)``) and the cluster one (``init(address=...)``).
 
 ``iter_batches`` is the per-host input pipeline: it streams block refs with
 a bounded prefetch window and yields contiguous numpy batches;

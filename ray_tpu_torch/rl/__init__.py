@@ -16,7 +16,7 @@ cluster (``rt.init(address=...)``) sample on the CPU in worker processes:
     import ray_tpu_torch as rt
     from ray_tpu_torch.rl.algorithms import PPOConfig
 
-    rt.init()
+    rt.init(local_mode=True)
     algo = (PPOConfig().environment("CartPole-v1")
             .rollouts(num_rollout_workers=2, num_envs_per_worker=16)
             .build())                    # .resources(device="cpu") for the CPU

@@ -6,8 +6,8 @@ setup builds the WorkerSet, train() -> training_step) and
 algorithm_config.py:117 (AlgorithmConfig fluent builder). The WorkerSet
 (evaluation/worker_set.py:79) is a list of RolloutWorker actors with
 object-store weight broadcast (sync_weights:384), on either of the port's
-runtimes: in this process (``init()``), or in worker processes of a cluster
-(``init(address=...)``).
+runtimes: in this process (``init(local_mode=True)``), or in worker
+processes of a cluster (``init()`` or ``init(address=...)``).
 
 The port's device idiom: ``resources(device=...)`` places the learner;
 ``None`` (the default) means the CUDA card, as the JAX package runs it on

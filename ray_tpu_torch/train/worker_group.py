@@ -13,10 +13,11 @@ Where the port differs from the JAX module:
   leases it whole cards under ``CUDA_VISIBLE_DEVICES``, so the worker's
   card is ``cuda:0`` (``torch_utils.get_device``). There is no ``SLICE``
   gang: the port has no slice placement.
-- The in-process runtime (``init()``) runs actors as threads of one
-  process, which holds one ``torch.distributed`` group: a gang of more
-  than one rank raises ``ValueError`` that names ``init(address=...)``; a
-  one-rank gang runs there without a placement group.
+- The in-process runtime (``init(local_mode=True)``) runs actors as
+  threads of one process, which holds one ``torch.distributed`` group: a
+  gang of more than one rank raises ``ValueError`` that names
+  ``init(address=...)``; a one-rank gang runs there without a placement
+  group.
 - ``execute`` and the loop go to worker processes by import path
   (ROADMAP.md C), so they are module-level functions, not lambdas.
 """

@@ -285,7 +285,7 @@ def _report_group(config):
 @pytest.fixture
 def in_process():
     saved, core_api._runtime = core_api._runtime, None
-    rt.init(num_cpus=2)
+    rt.init(local_mode=True, num_cpus=2)
     try:
         yield
     finally:

@@ -382,7 +382,7 @@ def test_a_bundle_card_reaches_its_worker(cluster):
 def test_placement_groups_and_collectives_need_the_cluster_runtime():
     from ray_tpu_torch.core import api as core_api
     saved, core_api._runtime = core_api._runtime, None
-    rt.init(num_cpus=2)
+    rt.init(local_mode=True, num_cpus=2)
     try:
         with pytest.raises(ValueError, match=r"init\(address"):
             placement_group([{"CPU": 1}])

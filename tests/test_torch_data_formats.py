@@ -1,6 +1,6 @@
 """The port's data formats and data-library depth (``ray_tpu_torch.data``:
 tensor columns, images, TFRecord, stats, parquet, CSV and JSON) on its
-in-process runtime (``init()``), held to the JAX package.
+in-process runtime (``init(local_mode=True)``), held to the JAX package.
 
 - *Counterparts* of the 9 tests of ``tests/test_data_depth.py``. Each
   program takes a data package and a scratch directory and returns plain
@@ -261,7 +261,7 @@ def jax_runs(tmp_path_factory):
 def port_rt(jax_runs):
     import ray_tpu.data  # noqa: F401 - the JAX tensor type registers first
     rt.shutdown()
-    rt.init(num_cpus=4)
+    rt.init(local_mode=True, num_cpus=4)
     yield rt
     rt.shutdown()
 

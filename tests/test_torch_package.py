@@ -274,7 +274,7 @@ def test_device_none_without_cuda_raises(monkeypatch, name):
     cfg = tmodels.TransformerConfig(vocab_size=16, d_model=32, n_layers=1,
                                     n_heads=2)
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=2)
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
     try:
         with pytest.raises(RuntimeError, match="CUDA"):
             ENTRY_POINTS[name](cfg)
@@ -391,6 +391,20 @@ def test_import_walk_covers_the_data_library():
     assert not missing, missing
 
 
+_CONTROL_MODULES = (
+    "ray_tpu_torch/client/__init__.py", "ray_tpu_torch/client/common.py",
+    "ray_tpu_torch/client/server.py", "ray_tpu_torch/client/runtime.py",
+    "ray_tpu_torch/job_submission.py", "ray_tpu_torch/state/__init__.py",
+    "ray_tpu_torch/state/api.py", "ray_tpu_torch/dashboard.py",
+    "ray_tpu_torch/scripts.py", "ray_tpu_torch/__main__.py")
+
+
+def test_import_walk_covers_the_control_surface():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _CONTROL_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -424,7 +438,9 @@ def _fresh(body):
     "ray_tpu_torch.core.runtime_cluster", "ray_tpu_torch.cluster.worker_main",
     "ray_tpu_torch.cluster.worker_zygote", "ray_tpu_torch.train.trainer",
     "ray_tpu_torch.util.collective", "ray_tpu_torch.data",
-    "ray_tpu_torch.serve"])
+    "ray_tpu_torch.serve", "ray_tpu_torch.client", "ray_tpu_torch.state",
+    "ray_tpu_torch.job_submission", "ray_tpu_torch.dashboard",
+    "ray_tpu_torch.scripts"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
@@ -496,7 +512,7 @@ import numpy as np
 
 import ray_tpu_torch as rt
 import ray_tpu_torch.data as rd
-rt.init(num_cpus=2)
+rt.init(local_mode=True, num_cpus=2)
 ds = rd.range(64, parallelism=4).map_batches(
     lambda b: {"id": b["id"] * 2}).random_shuffle(seed=3)
 batches = list(ds.iter_torch_batches(batch_size=16))
@@ -544,7 +560,7 @@ def test_lambda_data_function_on_the_cluster_runtime_raises_at_the_call():
     finally:
         core_api._runtime = prev
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=2)
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
     try:
         from ray_tpu_torch import data
         got = data.range(4).map_batches(lambda b: {"id": b["id"] + 1})

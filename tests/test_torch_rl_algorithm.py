@@ -3,8 +3,9 @@
 on the CPU.
 
 Each stack runs in its own in-process runtime, started and shut down here
-(``ray_tpu.init(local_mode=True)`` and ``ray_tpu_torch.init()``; never the
-conftest's ``local_rt``). The port's drivers run with
+(``ray_tpu.init(local_mode=True)`` and
+``ray_tpu_torch.init(local_mode=True)``; never the conftest's
+``local_rt``). The port's drivers run with
 ``.resources(device="cpu")``.
 
 - The fluent chains set the same attributes, and ``module_spec`` and the
@@ -67,7 +68,7 @@ def runtimes():
     ray_tpu.shutdown()
     ray_tpu_torch.shutdown()
     ray_tpu.init(local_mode=True, num_cpus=4)
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield
     ray_tpu_torch.shutdown()
     ray_tpu.shutdown()
@@ -76,7 +77,7 @@ def runtimes():
 @pytest.fixture
 def trt():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 

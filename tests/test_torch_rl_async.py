@@ -65,7 +65,7 @@ def runtimes():
     ray_tpu.shutdown()
     ray_tpu_torch.shutdown()
     ray_tpu.init(local_mode=True, num_cpus=4)
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield
     ray_tpu_torch.shutdown()
     ray_tpu.shutdown()
@@ -74,7 +74,7 @@ def runtimes():
 @pytest.fixture
 def trt():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 

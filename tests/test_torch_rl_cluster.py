@@ -235,7 +235,8 @@ def image_toy_env(num_envs, seed):
 def test_sampler_placement_follows_the_runtime(cluster):
     """On the cluster a sampler takes the CPU and one thread whatever the
     learner's device; in-process it takes the learner's device. With no
-    runtime yet, the rule and the env check start none: building a driver
+    runtime yet, the rule is the cluster's (the head an implicit ``init()``
+    starts), and the rule and the env check start none: building a driver
     that starts no actor (a DQN without collectors here; CQL, BC, MARWIL)
     leaves none behind."""
     for device in (torch.device("cuda"), torch.device("cpu"), "cuda:1"):
@@ -244,11 +245,11 @@ def test_sampler_placement_follows_the_runtime(cluster):
     saved = core_api._runtime
     core_api._runtime = None
     try:
-        assert talgorithm.sampler_placement("cpu") == \
-            {"device": "cpu", "num_threads": None}
+        assert talgorithm.sampler_placement(torch.device("cuda")) == \
+            {"device": "cpu", "num_threads": 1}
         _cartpole(DQNConfig(), num_rollout_workers=0).build()
         assert core_api._runtime is None
-        rt.init()
+        rt.init(local_mode=True)
         assert talgorithm.sampler_placement(torch.device("cuda")) == \
             {"device": torch.device("cuda"), "num_threads": None}
     finally:

@@ -215,7 +215,7 @@ def test_rollout_worker_on_the_card(cuda_device, no_tf32):
 def port_runtime(cuda_device):
     import ray_tpu_torch
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4, num_gpus=1)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 

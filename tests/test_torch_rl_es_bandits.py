@@ -2,7 +2,8 @@
 against ray_tpu.rl.algorithms on the CPU (the port with ``device="cpu"``).
 
 Each stack runs in its own in-process runtime, started here
-(``ray_tpu.init(local_mode=True)`` and ``ray_tpu_torch.init()``).
+(``ray_tpu.init(local_mode=True)`` and
+``ray_tpu_torch.init(local_mode=True)``).
 
 - ES: theta is the policy's leaves in ``jax.tree.leaves``' order (dict
   keys sorted at every level, so ``b`` before ``w`` and ``pi`` before
@@ -61,7 +62,7 @@ def runtimes():
     ray_tpu.shutdown()
     ray_tpu_torch.shutdown()
     ray_tpu.init(local_mode=True, num_cpus=4)
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield
     ray_tpu_torch.shutdown()
     ray_tpu.shutdown()
@@ -70,7 +71,7 @@ def runtimes():
 @pytest.fixture
 def trt():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 

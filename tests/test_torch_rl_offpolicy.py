@@ -2,8 +2,9 @@
 ray_tpu_torch.rl.algorithms against ray_tpu.rl.algorithms on the CPU.
 
 Each stack runs in its own in-process runtime, started here
-(``ray_tpu.init(local_mode=True)`` and ``ray_tpu_torch.init()``). The port
-runs with ``device="cpu"``; both stacks compute in f32.
+(``ray_tpu.init(local_mode=True)`` and
+``ray_tpu_torch.init(local_mode=True)``). The port runs with
+``device="cpu"``; both stacks compute in f32.
 
 - Learners: 4 consecutive updates from the same weights (the JAX init,
   moved by a seeded draw) on seeded minibatches, through DQN's jitted TD
@@ -75,7 +76,7 @@ def runtimes():
     ray_tpu.shutdown()
     ray_tpu_torch.shutdown()
     ray_tpu.init(local_mode=True, num_cpus=4)
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield
     ray_tpu_torch.shutdown()
     ray_tpu.shutdown()
@@ -84,7 +85,7 @@ def runtimes():
 @pytest.fixture
 def trt():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=4)
+    ray_tpu_torch.init(local_mode=True, num_cpus=4)
     yield ray_tpu_torch
     ray_tpu_torch.shutdown()
 

@@ -156,7 +156,7 @@ def test_prioritized_buffer_equals_the_jax_buffer():
 
 def test_structured_batch_survives_put_and_get():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(num_cpus=2)
+    ray_tpu_torch.init(local_mode=True, num_cpus=2)
     try:
         w = RolloutWorker("CartPole-v1",
                           {"obs_dim": 4, "num_actions": 2, "hiddens": (16,)},

@@ -5,7 +5,7 @@ runs once on each package, in that package's own in-process runtime (started
 and shut down here, never through the conftest's ``local_rt``, which serves
 ``ray_tpu`` alone), with the same expected values. Then what only the port
 has: a shutdown that joins its threads and wakes blocked getters, init with an
-address refused, the torch tensor path of the serialization (numpy blobs
+address that is not there refused, the torch tensor path of the serialization (numpy blobs
 byte-identical to the JAX package's), the ``num_gpus`` checks mirrored on
 ``num_tpus``'s, the ``runtime_env`` key checks and the config registry.
 """
@@ -24,20 +24,20 @@ from ray_tpu import config as jconfig
 from ray_tpu.core import options as joptions
 from ray_tpu.core import serialization as jser
 from ray_tpu_torch import config as tconfig
+from ray_tpu_torch.core import api as core_api
 from ray_tpu_torch.core import options as toptions
+from ray_tpu_torch.core import refs as core_refs
 from ray_tpu_torch.core import serialization as tser
 from ray_tpu_torch.core.ids import ObjectID
-from ray_tpu_torch.core.runtime_local import THREAD_PREFIX
+from ray_tpu_torch.core.runtime_cluster import ClusterRuntime
+from ray_tpu_torch.core.runtime_local import THREAD_PREFIX, LocalRuntime
 
 PACKAGES = {"ray_tpu": ray_tpu, "ray_tpu_torch": ray_tpu_torch}
 
 
 def _start(pkg):
     pkg.shutdown()
-    if pkg is ray_tpu:
-        pkg.init(local_mode=True, num_cpus=4)
-    else:
-        pkg.init(num_cpus=4)
+    pkg.init(local_mode=True, num_cpus=4)
 
 
 @pytest.fixture(params=sorted(PACKAGES))
@@ -440,26 +440,29 @@ def test_remote_lambda_needs_no_pickling(trt):
         tser.dumps(lambda x: x)
 
 
-@pytest.mark.parametrize("address", ["127.0.0.1:1", "client://host:1"])
+@pytest.mark.parametrize("address", ["127.0.0.1:1", "client://127.0.0.1:1"])
 def test_init_with_an_address_is_refused(address, monkeypatch):
-    """A ``client://`` address is still to port; a conductor that is not
-    there raises too. Neither falls back to the in-process runtime."""
+    """A conductor, or a client proxy, that is not there raises. Neither
+    falls back to the in-process runtime."""
     ray_tpu_torch.shutdown()
     monkeypatch.setitem(tconfig._overrides, "gcs_rpc_reconnect_s", 0.5)
-    if address.startswith("client://"):
-        with pytest.raises(NotImplementedError, match="A.5"):
-            ray_tpu_torch.init(address)
-    else:
-        with pytest.raises(ConnectionError):
-            ray_tpu_torch.init(address)
+    with pytest.raises(ConnectionError):
+        ray_tpu_torch.init(address)
     assert not ray_tpu_torch.is_initialized()
+    assert core_refs._tracker is None
 
 
 def test_init_forms_and_resources():
+    """``init()`` starts a head (the cluster runtime, as the JAX ``init()``
+    does); ``local_mode=True`` and ``address="local"`` the in-process
+    runtime. Each counts the resources it is given."""
     ray_tpu_torch.shutdown()
-    for kw in ({}, {"local_mode": True}, {"address": "local"}):
+    for kw, runtime in (({}, ClusterRuntime),
+                        ({"local_mode": True}, LocalRuntime),
+                        ({"address": "local"}, LocalRuntime)):
         ray_tpu_torch.init(num_cpus=2, num_gpus=1, **kw)
         try:
+            assert type(core_api._runtime) is runtime
             assert ray_tpu_torch.cluster_resources() == {"CPU": 2.0,
                                                          "GPU": 1.0}
             assert ray_tpu_torch.nodes()[0]["Alive"]
@@ -650,7 +653,8 @@ def test_config_flags_keep_the_jax_names_types_and_defaults(monkeypatch):
 
 def test_init_applies_the_system_config():
     ray_tpu_torch.shutdown()
-    ray_tpu_torch.init(_system_config={"worker_pool_max_size": 3})
+    ray_tpu_torch.init(local_mode=True,
+                       _system_config={"worker_pool_max_size": 3})
     try:
         assert tconfig.get("worker_pool_max_size") == 3
     finally:

@@ -3,7 +3,7 @@ package's in-process runtime.
 
 Each scenario of ``tests/test_serve.py``, ``tests/test_serve_dag_proxy.py``
 and ``tests/test_serve_lm.py`` runs once on ``ray_tpu.init(local_mode=True)``
-with ``ray_tpu.serve`` and once on ``ray_tpu_torch.init()`` with
+with ``ray_tpu.serve`` and once on ``ray_tpu_torch.init(local_mode=True)`` with
 ``ray_tpu_torch.serve``, in the same test and on the same inputs, and the
 test compares what the two stacks answered: values, HTTP status codes and
 bodies, batch sizes, and how many replicas were hit. No test starts a
@@ -46,7 +46,7 @@ def _stack(name):
     if rt is ray_tpu:
         rt.init(local_mode=True, num_cpus=8)
     else:
-        rt.init(num_cpus=8)
+        rt.init(local_mode=True, num_cpus=8)
     try:
         yield rt, serve
     finally:

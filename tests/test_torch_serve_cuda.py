@@ -73,7 +73,7 @@ class LMServer:
 
 def _serve(device, prompts):
     """(HTTP answers, generate calls, flash launches) of one deployment."""
-    rt.init()
+    rt.init(local_mode=True)
     try:
         handle = serve.run(LMServer.bind(device), http_host="127.0.0.1")
         url = f"http://127.0.0.1:{handle.http_port}/generate"
@@ -116,7 +116,7 @@ def test_http_lm_handle_path_on_the_card(card):
         0, CFG.vocab_size, 16).tolist()
     outs = []
     for device in (None, "cpu"):
-        rt.init()
+        rt.init(local_mode=True)
         try:
             handle = serve.run(LMServer.bind(device))
             outs.append(rt.get(handle.options("generate_batch")

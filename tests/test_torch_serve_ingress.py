@@ -63,7 +63,7 @@ def _stack(name, overrides=None):
     if rt is ray_tpu:
         rt.init(local_mode=True, num_cpus=8)
     else:
-        rt.init(num_cpus=8)
+        rt.init(local_mode=True, num_cpus=8)
     try:
         yield rt, serve
     finally:
