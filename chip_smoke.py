@@ -189,8 +189,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    step ms and their ratio (DTensor's cost at one rank), and
    ``attn_impl="ring"``'s loss within 2e-3 of the flash loss, and each
    leaf's first-step gradient with the mesh against ``mesh=None``; one
-   ``PPOLearner.update`` with the mesh within 1e-5 of ``mesh=None`` (f32).
-   The phase destroys its process group.
+   ``PPOLearner.update`` with the mesh within 1e-5 of ``mesh=None`` (f32);
+   the ViT (phase 9's ``ViTConfig()`` at B 128) through
+   ``make_vit_train_step(cfg, mesh)`` and ResNet-50 (phase 11's B 256 at
+   224²) through ``make_resnet_train_step(mesh)`` (BatchNorm over the
+   global batch), each 3 steps from the seeded init of ``mesh=None``'s 3,
+   each loss within 2e-3 of its, the ViT's flash launches (12, 6, 6, 6) a
+   step, ResNet's 0 and its new batch statistics within 1e-2 of each
+   leaf's magnitude, both paths' step ms and their ratio. Expert
+   parallelism needs an ``ep`` axis above 1, so more than one rank, which
+   is one card each under NCCL: the phase says so and leaves it to the
+   CPU tests. The phase destroys its process group.
 24. Serve over HTTP (``ray_tpu_torch.serve`` on the port's in-process
    runtime, ``init(local_mode=True)``): the flagship (phase 3's
    configuration, bf16, weights drawn on the card from a seed) behind
@@ -3193,6 +3202,13 @@ PIPE_TOL = 2e-2
 MESH_LOSS_TOL = 2e-3
 # The PPO learner (f32, TF32 off) with a one-rank mesh against none.
 MESH_PPO_TOL = 1e-5
+# ResNet-50's new batch statistics after 3 steps with a one-rank mesh
+# against mesh=None, as a share of each leaf's largest magnitude: the mesh
+# path's BatchNorm takes flax's E[x²] − E[x]² from all-reduced sums where
+# F.batch_norm takes its own variance, so the statistics differ by f32
+# rounding at the first step, and by what the bf16 steps make of that
+# after. Its losses are held to MESH_LOSS_TOL, as the flagship's.
+MESH_STATS_TOL = 1e-2
 
 
 def _collectives_at_one_rank(mesh):
@@ -3377,8 +3393,9 @@ def _first_grad_diffs(cfg, mesh, tokens, seed):
 
 def phase_parallel(card):
     """Phase 23: the mesh (a one-rank NCCL group), the collectives, ring and
-    Ulysses attention, the pipeline, the flagship train step and the PPO
-    learner on a one-rank mesh. Destroys its process group."""
+    Ulysses attention, the pipeline, the flagship train step, the PPO
+    learner and the ViT and ResNet-50 train steps on a one-rank mesh.
+    Destroys its process group."""
     import torch.distributed as dist
 
     from ray_tpu_torch.models import transformer as tf
@@ -3452,9 +3469,126 @@ def phase_parallel(card):
                               ring_launches=ring_launches,
                               first_grad_diffs=gdiff))
         out["ppo"] = _ppo_on_mesh(card, mesh)
+        out.update(_vision_on_mesh(card, mesh))
+        print("[mesh] expert parallelism (the ep axis) is not run here: "
+              "NCCL takes one rank a card, and ep 1 shards nothing; the ep "
+              "path is held to the JAX package on 4 gloo ranks "
+              "(tests/test_torch_mesh_steps.py)", flush=True)
     finally:
         dist.destroy_process_group()
     check(not dist.is_initialized(), "phase 23 left its process group")
+    return out
+
+
+def _vision_steps(make_step, seed, data, steps=3, timed=3):
+    """``steps`` counted steps and ``timed`` timed ones of a vision train
+    step ``(init_fn, step_fn, place)`` from a seeded init -> (losses,
+    launches a step, step ms, the batch statistics after the counted steps
+    or None)."""
+    from ray_tpu_torch.train.step import _leaves
+    init_fn, step_fn, place = make_step
+    state = init_fn(torch.Generator(device="cuda").manual_seed(seed))
+    batch = place(data)
+    losses, per_step = [], []
+    for _ in range(steps):
+        _reset_launch_counts()
+        state, metrics = step_fn(state, batch)
+        losses.append(metrics["loss"].item())
+        per_step.append(_launch_counts())
+    stats = None
+    if "batch_stats" in state.params:
+        stats = [(t.full_tensor() if hasattr(t, "full_tensor") else t)
+                 .clone() for t in _leaves(state.params["batch_stats"])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        state, metrics = step_fn(state, batch)
+    metrics["loss"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / timed * 1e3
+    del state, batch
+    torch.cuda.empty_cache()
+    return losses, per_step, step_ms, stats
+
+
+def _vision_on_mesh(card, mesh):
+    """The ViT (``ViTConfig()``, batch 128, phase 9's settings) and
+    ResNet-50 (batch 256 at 224², phase 11's) train steps with the one-rank
+    mesh against mesh=None, from the same weights and batch."""
+    from ray_tpu_torch.models import ViTConfig
+    from ray_tpu_torch.train import make_resnet_train_step, make_vit_train_step
+    t0 = time.perf_counter()
+    out = {}
+    cfg = ViTConfig()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = {"image": torch.randn(128, cfg.image_size, cfg.image_size, 3,
+                                 generator=gen, device="cuda"),
+            "label": torch.randint(0, cfg.num_classes, (128,),
+                                   generator=gen, device="cuda")}
+    plain, meshed = (_vision_steps(make_vit_train_step(cfg, m), 12, data)
+                     for m in (None, mesh))
+    del data
+    L = cfg.n_layers
+    want_n = (2 * L, L, L, L)
+    check(all(n == want_n for n in plain[1] + meshed[1]),
+          f"ViT steps launched {plain[1]} (mesh=None), {meshed[1]} (mesh), "
+          f"want {want_n} a step")
+    diffs = [abs(a - b) for a, b in zip(plain[0], meshed[0])]
+    check(max(diffs) <= MESH_LOSS_TOL and all(np.isfinite(meshed[0])),
+          f"ViT mesh losses {meshed[0]} against {plain[0]}, tol "
+          f"{MESH_LOSS_TOL}")
+    print(f"[mesh] ViT train step (ViTConfig(), B 128 at 224², remat, "
+          f"AdamW, bf16): losses mesh=None {[round(x, 5) for x in plain[0]]}, "
+          f"one-rank mesh {[round(x, 5) for x in meshed[0]]} (max diff "
+          f"{max(diffs):.3e}, tol {MESH_LOSS_TOL}); launches a step (fwd, "
+          f"dkv, dq, delta) {meshed[1][0]}; step ms mesh=None "
+          f"{plain[2]:.1f}, mesh {meshed[2]:.1f}, ratio "
+          f"{meshed[2] / plain[2]:.4f} on {card}", flush=True)
+    out["vit"] = dict(losses_plain=plain[0], losses_mesh=meshed[0],
+                      launches_per_step=meshed[1][0],
+                      launches=tuple(sum(n[i] for n in meshed[1])
+                                     for i in range(4)),
+                      step_ms_plain=plain[2], step_ms_mesh=meshed[2],
+                      ratio=meshed[2] / plain[2])
+    prior = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True     # phase 11's setting
+    try:
+        rng = np.random.default_rng(0)       # phase 11's data
+        host = {"image": rng.normal(size=(256, 224, 224, 3))
+                .astype(np.float32),
+                "label": rng.integers(0, 1000, (256,))}
+        plain, meshed = (_vision_steps(make_resnet_train_step(
+            m, num_classes=1000, image_size=224, learning_rate=0.1), 0, host)
+            for m in (None, mesh))
+        del host
+    finally:
+        torch.backends.cudnn.benchmark = prior
+    check(all(n == (0, 0, 0, 0) for n in plain[1] + meshed[1]),
+          f"ResNet steps launched flash kernels {plain[1]}, {meshed[1]}")
+    diffs = [abs(a - b) for a, b in zip(plain[0], meshed[0])]
+    stats_err = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(meshed[3], plain[3]))
+    check(max(diffs) <= MESH_LOSS_TOL and all(np.isfinite(meshed[0])),
+          f"ResNet mesh losses {meshed[0]} against {plain[0]}, tol "
+          f"{MESH_LOSS_TOL}")
+    check(stats_err <= MESH_STATS_TOL,
+          f"ResNet mesh batch statistics {stats_err} of their magnitude "
+          f"from mesh=None's, tol {MESH_STATS_TOL}")
+    print(f"[mesh] ResNet-50 train step (B 256 at 224², SGD Nesterov, bf16 "
+          f"channels_last, global BatchNorm): losses mesh=None "
+          f"{[round(x, 5) for x in plain[0]]}, one-rank mesh "
+          f"{[round(x, 5) for x in meshed[0]]} (max diff {max(diffs):.3e}, "
+          f"tol {MESH_LOSS_TOL}); new batch_stats max diff {stats_err:.3e} "
+          f"of each leaf's magnitude (tol {MESH_STATS_TOL}); flash launches "
+          f"{meshed[1][0]} a step; step ms mesh=None {plain[2]:.1f}, mesh "
+          f"{meshed[2]:.1f}, ratio {meshed[2] / plain[2]:.4f} on {card}",
+          flush=True)
+    out["resnet"] = dict(losses_plain=plain[0], losses_mesh=meshed[0],
+                         stats_err=stats_err, launches=(0, 0, 0, 0),
+                         step_ms_plain=plain[2], step_ms_mesh=meshed[2],
+                         ratio=meshed[2] / plain[2])
+    print(f"[mesh] vision steps: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     return out
 
 
@@ -6224,7 +6358,8 @@ def main() -> int:
                  "ring_n1": par["attention"]["ring"],
                  "ulysses_n1": par["attention"]["ulysses"],
                  "pipeline_n1": par["pipeline"],
-                 "ppo_mesh": par["ppo"]})
+                 "ppo_mesh": par["ppo"],
+                 "mesh_vit": par["vit"], "mesh_resnet": par["resnet"]})
     t0 = time.perf_counter()
     runs["http-serve"] = phase_http_serve(card, runs["serve"]["tokens_per_s"])
     print(f"[phase] http serve: {time.perf_counter() - t0:.1f} s",

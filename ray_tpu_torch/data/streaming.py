@@ -37,6 +37,10 @@ class PhysicalOp:
         self.input_done = False
         self.finished = False
         self.stats = OpStats(self.name)
+        # blocks this op emitted that its consumer has not taken yet: the
+        # executor points the last op at its consumer's queue, so that a
+        # consumer that stops pulling stops the plan
+        self.held_downstream: Callable[[], int] = lambda: 0
 
     # -- hooks ------------------------------------------------------------
     def poke(self, executor: "StreamingExecutor") -> None:
@@ -49,7 +53,7 @@ class PhysicalOp:
         return [ref]
 
     def backpressured(self) -> bool:
-        return len(self.outq) >= _DEFAULT_BUFFER
+        return len(self.outq) + self.held_downstream() >= _DEFAULT_BUFFER
 
     def idle(self) -> bool:
         return not self.inq and not self.inflight
@@ -74,6 +78,12 @@ class MapOp(PhysicalOp):
         self._seq_in = 0
         self._next_out = 0
         self._ready: dict = {}      # seq -> output ref
+
+    def backpressured(self) -> bool:
+        # blocks done out of order wait in _ready for an earlier one: they
+        # count, or a slow first block lets the op run the whole plan
+        return (len(self.outq) + len(self._ready) + self.held_downstream()
+                >= _DEFAULT_BUFFER)
 
     def poke(self, executor) -> None:
         while (self.inq and len(self.inflight) < _DEFAULT_INFLIGHT and
@@ -172,6 +182,8 @@ class StreamingExecutor:
         self._cancel = threading.Event()   # consumer abandoned the iterator
         self._error: Optional[BaseException] = None
         self._ready = threading.Condition()
+        if ops:
+            ops[-1].held_downstream = lambda: len(self._out)
 
     def _pump_once(self) -> bool:
         """One scheduling round. Returns True if anything moved."""

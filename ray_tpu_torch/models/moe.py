@@ -6,8 +6,15 @@ dropped from that expert (the residual path keeps it). The JAX package leaves
 the router, dispatch, expert and combine products to XLA outside any Pallas
 kernel, so here they are ``torch.einsum`` calls; there is no kernel to port.
 
-Expert parallelism (the JAX package's "expert" axis over the mesh) is not
-ported: the layer runs every expert on one device.
+On a mesh (``mesh=``) the layer is expert parallel, as the JAX package's
+is under GSPMD: the expert weights are sharded on ``ep`` (``"expert"``) and
+their hidden dim on ``tp`` (``"expert_mlp"``), and each rank runs the layer
+on its local blocks (``shard_map``). The router is replicated, so every
+``ep`` rank routes its whole batch rows over all the experts (the capacity
+comes from the global expert count) and keeps the slots of its own experts;
+no rank needs another's tokens. The combine then holds a partial sum of the
+output on each ``ep`` and ``tp`` rank, and one all-reduce over those axes a
+layer sums it. No expert weight is gathered.
 """
 
 from __future__ import annotations
@@ -68,26 +75,64 @@ def route(cfg, router, h, *, capacity_factor=None):
     return gates, dispatch, combine
 
 
-def moe_apply(cfg, moe_params, h, *, capacity_factor=None, device=None):
+def moe_apply(cfg, moe_params, h, *, capacity_factor=None, mesh=None,
+              device=None):
     """h [B, S, D] -> [B, S, D]: route each token to its top
     ``cfg.expert_top_k`` of ``cfg.num_experts`` SwiGLU experts
     (``moe_params``: router [D, E], w1 and w3 [E, D, F], w2 [E, F, D]) and
     sum their outputs weighted by the gates. Capacity: explicit argument >
     ``cfg.moe_capacity_factor`` > 1.25; inference passes a huge factor
     (dropless, ``generate._inference_cfg``). Products in h's dtype, routing
-    in f32. ``h`` must lie on ``device`` (``None``: the CUDA card)."""
+    in f32. ``h`` must lie on ``device`` (``None``: the CUDA card). With
+    ``mesh`` the arguments are DTensors (or tensors with the same value on
+    every rank) and the layer is expert parallel (module docstring)."""
     dev = resolve_device(device)
     if h.device.type != dev.type:
         raise ValueError(f"h lies on {h.device}, the call asks for {dev}")
+    if mesh is not None:
+        return _moe_on_mesh(cfg, moe_params, h, capacity_factor, mesh)
+    return _experts(cfg, moe_params, h, capacity_factor)
+
+
+def _experts(cfg, moe_params, h, capacity_factor, first: int = 0):
+    """The layer over the experts ``first ..`` that ``moe_params``' expert
+    weights hold (all of them off a mesh), routed over all
+    ``cfg.num_experts``: their share of the output."""
     dt = h.dtype
     _, dispatch, combine = route(cfg, moe_params["router"], h,
                                  capacity_factor=capacity_factor)
-    xs = torch.einsum("bsec,bsd->becd", dispatch.to(dt), h)     # [B,E,C,D]
     w1, w3, w2 = (moe_params[n].to(dt) for n in ("w1", "w3", "w2"))
+    held = slice(first, first + w1.shape[0])
+    dispatch, combine = dispatch[:, :, held], combine[:, :, held]
+    xs = torch.einsum("bsec,bsd->becd", dispatch.to(dt), h)     # [B,E,C,D]
     gate = F.silu(torch.einsum("becd,edf->becf", xs, w1))
     up = torch.einsum("becd,edf->becf", xs, w3)
     ys = torch.einsum("becf,efd->becd", gate * up, w2)          # [B,E,C,D]
     return torch.einsum("bsec,becd->bsd", combine.to(dt), ys)
+
+
+def _moe_on_mesh(cfg, moe_params, h, capacity_factor, mesh):
+    from ray_tpu_torch.parallel.collectives import allreduce_sum, axis_index
+    from ray_tpu_torch.parallel.mesh import data_axes, mesh_sizes
+    from ray_tpu_torch.parallel.sharding import shard_map
+    sizes = mesh_sizes(mesh)
+    if cfg.num_experts % sizes["ep"]:
+        raise ValueError(f"num_experts={cfg.num_experts} does not split "
+                         f"over ep={sizes['ep']}")
+    # the output's partial sums: over ep (each rank's experts) and tp (each
+    # rank's slice of the expert hidden dim)
+    partial = tuple(a for a in ("ep", "tp") if sizes[a] > 1)
+
+    def body(h, router, w1, w3, w2):
+        y = _experts(cfg, {"router": router, "w1": w1, "w3": w3, "w2": w2},
+                     h, capacity_factor, axis_index("ep") * w1.shape[0])
+        return allreduce_sum(y, partial) if partial else y
+
+    rows = (data_axes(), None, None)
+    up, down = ("ep", None, "tp"), ("ep", "tp", None)
+    return shard_map(body, mesh, (rows, (), up, up, down), rows)(
+        h, moe_params["router"], moe_params["w1"], moe_params["w3"],
+        moe_params["w2"])
 
 
 def load_balance_loss(gates, dispatch):

@@ -27,6 +27,15 @@ flax's semantics, matched exactly:
   variance, n/(n−1) times flax's, so the port makes the running averages
   itself (``batch_norm``). Each block's last BatchNorm starts at scale 0.
 
+On a mesh (``group=``, the process group of the mesh's data axes, which
+the train step passes from inside its ``shard_map``) each rank runs the
+model on its rows of the batch, and train-mode BatchNorm normalises with the
+statistics of the global batch, as flax's under jit with the batch sharded:
+the per-channel sums, sums of squares and counts are all-reduced over the
+group and the variance is flax's E[x²] − E[x]² clipped at 0
+(``_GlobalBatchNorm``). Its backward all-reduces the sums that the
+gradient of the statistics needs.
+
 The model computes in ``channels_last`` memory format, which cuDNN's
 tensor-core convolutions take: the NHWC images permuted to NCHW already are
 ``channels_last``, with no copy.
@@ -83,10 +92,12 @@ def max_pool_same(x, window: int = 3, stride: int = 2):
     return F.max_pool2d(x, window, stride, padding=padding)
 
 
-def batch_norm(x, params, stats, train: bool):
+def batch_norm(x, params, stats, train: bool, group=None):
     """flax ``nn.BatchNorm`` over N, H and W of x [N, C, H, W] -> (y in x's
     dtype, statistics). Train mode returns the new running averages; eval
-    mode normalises with ``stats`` and returns them unchanged.
+    mode normalises with ``stats`` and returns them unchanged. With
+    ``group`` train mode takes the statistics over the rows of every rank
+    of the group (``_GlobalBatchNorm``).
 
     In train mode ``F.batch_norm`` writes into the buffers it is given
     ``(1 − m) · buffer + m · batch``, with the batch mean and the *unbiased*
@@ -102,16 +113,99 @@ def batch_norm(x, params, stats, train: bool):
     if not train:
         return F.batch_norm(x, stats["mean"].to(acc), stats["var"].to(acc),
                             scale, bias, training=False, eps=EPSILON), stats
-    mean = torch.zeros_like(stats["mean"], dtype=acc)
-    var = torch.zeros_like(stats["var"], dtype=acc)
-    y = F.batch_norm(x, mean, var, scale, bias, training=True, momentum=1.0,
-                     eps=EPSILON)
-    n = x.numel() // x.shape[1]
+    if group is not None:
+        y, mean, var = _GlobalBatchNorm.apply(x, scale, bias, group)
+    else:
+        mean = torch.zeros_like(stats["mean"], dtype=acc)
+        var = torch.zeros_like(stats["var"], dtype=acc)
+        y = F.batch_norm(x, mean, var, scale, bias, training=True,
+                         momentum=1.0, eps=EPSILON)
+        n = x.numel() // x.shape[1]
+        var = var * ((n - 1) / n)
     return y, {
         "mean": MOMENTUM * stats["mean"] + (1 - MOMENTUM) * mean,
-        "var": (MOMENTUM * stats["var"]
-                + (1 - MOMENTUM) * (var * ((n - 1) / n))),
+        "var": MOMENTUM * stats["var"] + (1 - MOMENTUM) * var,
     }
+
+
+_DIMS = (0, 2, 3)      # N, H and W: BatchNorm's reduction over [N, C, H, W]
+
+
+def _per_channel(t):
+    return t[:, None, None]
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm of x [N, C, H, W] over the rows of every rank of
+    ``group`` -> (y in x's dtype, the global mean, the global biased
+    variance). One all-reduce of [3, C] forward (sums, sums of squares,
+    counts) and one of [2, C] backward (the sums of dy and of dy · (x −
+    mean) that the statistics' gradients need). It keeps x and the
+    per-channel statistics for the backward, as F.batch_norm does. The
+    gradients of scale and bias are this rank's shares; the train step sums
+    them over the data axes with every other parameter's.
+
+    On the card each rank's passes are PyTorch's own kernels for BatchNorm
+    split over ranks (those of ``nn.SyncBatchNorm``, channels_last
+    included): one for the rank's mean and variance, one to normalise, two
+    backward. On the CPU they are elementwise in the statistics' dtype."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, group):
+        import torch.distributed as dist
+        acc, n_local = scale.dtype, x.numel() // x.shape[1]
+        if x.is_cuda:
+            # eps 0: the rank's exact variance is 1 / invstd²
+            mean, invstd = torch.batch_norm_stats(x, 0.0)
+            mean, var = mean.to(acc), invstd.to(acc).pow(-2)
+            sums = torch.stack([mean, var + mean * mean,
+                                torch.ones_like(mean)]) * n_local
+        else:
+            t = x.to(acc, copy=True)
+            sums = torch.stack([t.sum(_DIMS), t.square().sum(_DIMS),
+                                torch.full_like(scale, n_local)])
+        dist.all_reduce(sums, group=group)
+        n = sums[2]
+        mean = sums[0] / n
+        var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        invstd = torch.rsqrt(var + EPSILON)
+        if x.is_cuda:
+            y = torch.batch_norm_elemt(x, scale, bias, mean, invstd, EPSILON)
+        else:
+            y = t.sub_(_per_channel(mean)).mul_(_per_channel(invstd * scale)) \
+                .add_(_per_channel(bias)).to(x.dtype)
+        ctx.save_for_backward(x, mean, invstd, scale, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        import torch.distributed as dist
+        x, mean, invstd, scale, n = ctx.saved_tensors
+        if x.is_cuda:
+            dy = dy.contiguous(memory_format=torch.channels_last
+                               if x.is_contiguous(
+                                   memory_format=torch.channels_last)
+                               else torch.contiguous_format)
+            sum_dy, sum_dy_xmu, dscale, dbias = \
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, scale,
+                                                 True, True, True)
+            sums = torch.stack([sum_dy, sum_dy_xmu])
+            dist.all_reduce(sums, group=ctx.group)
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, scale, sums[0], sums[1],
+                n[:1].to(torch.int32))
+            return dx, dscale, dbias, None
+        xmu = x.to(scale.dtype, copy=True).sub_(_per_channel(mean))
+        g = dy.to(scale.dtype)
+        local = torch.stack([g.sum(_DIMS), (g * xmu).sum(_DIMS)])
+        sums = local.clone()
+        dist.all_reduce(sums, group=ctx.group)
+        dx = (g - _per_channel(sums[0] / n)
+              - xmu.mul_(_per_channel(invstd * invstd * sums[1] / n))) \
+            .mul_(_per_channel(invstd * scale))
+        return dx.to(x.dtype), local[1] * invstd, local[0], None
 
 
 def _norm_shapes(c: int):
@@ -142,25 +236,30 @@ class BottleneckBlock:
             params["norm_proj"], stats["norm_proj"] = _norm_shapes(4 * f)
         return params, stats
 
-    def __call__(self, params, stats, x, train: bool = True):
-        """-> (y, the block's new batch statistics)."""
+    def __call__(self, params, stats, x, train: bool = True, group=None):
+        """-> (y, the block's new batch statistics); ``group`` as
+        ``batch_norm``'s."""
         new = {}
         residual = x
         y = conv(x, params["Conv_0"]["kernel"])
         y, new["BatchNorm_0"] = batch_norm(y, params["BatchNorm_0"],
-                                           stats["BatchNorm_0"], train)
+                                           stats["BatchNorm_0"], train,
+                                           group)
         y = conv(F.relu(y, inplace=True), params["Conv_1"]["kernel"],
                  self.strides)
         y, new["BatchNorm_1"] = batch_norm(y, params["BatchNorm_1"],
-                                           stats["BatchNorm_1"], train)
+                                           stats["BatchNorm_1"], train,
+                                           group)
         y = conv(F.relu(y, inplace=True), params["Conv_2"]["kernel"])
         y, new["BatchNorm_2"] = batch_norm(y, params["BatchNorm_2"],
-                                           stats["BatchNorm_2"], train)
+                                           stats["BatchNorm_2"], train,
+                                           group)
         if "conv_proj" in params:
             residual = conv(residual, params["conv_proj"]["kernel"],
                             self.strides)
             residual, new["norm_proj"] = batch_norm(
-                residual, params["norm_proj"], stats["norm_proj"], train)
+                residual, params["norm_proj"], stats["norm_proj"], train,
+                group)
         return F.relu(residual + y, inplace=True), new
 
 
@@ -228,17 +327,20 @@ class ResNet:
 
         return walk(self.variable_shapes())
 
-    def __call__(self, variables, x, train: bool = True):
+    def __call__(self, variables, x, train: bool = True, group=None):
         """x [N, C, H, W] in ``dtype`` -> logits [N, num_classes] f32, and
-        in train mode the new ``batch_stats``."""
+        in train mode the new ``batch_stats``. With ``group`` (the process
+        group of the mesh's data axes) x is this rank's rows and train-mode
+        BatchNorm takes its statistics over every rank's."""
         params, stats = variables["params"], variables["batch_stats"]
         new = {}
         x = conv(x, params["conv_init"]["kernel"], 2, padding=3)
         x, new["bn_init"] = batch_norm(x, params["bn_init"],
-                                       stats["bn_init"], train)
+                                       stats["bn_init"], train, group)
         x = max_pool_same(F.relu(x, inplace=True))
         for name, block, _ in self.blocks():
-            x, new[name] = block(params[name], stats[name], x, train)
+            x, new[name] = block(params[name], stats[name], x, train,
+                                 group)
         # jnp.mean of bf16 sums in f32 and rounds the mean to bf16
         x = x.mean((2, 3), dtype=torch.float32).to(self.dtype)
         dense = params["Dense_0"]

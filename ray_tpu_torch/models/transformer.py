@@ -21,8 +21,8 @@ the JAX package. Attention runs on each rank's local blocks
 (``shard_map``): ``mha`` with the batch over the data axes and the heads
 over ``tp``, or ring/Ulysses attention over ``sp``. With ``pp_stages > 1``
 the layer tree is stacked ``[P, L/P, ...]`` and the layers run as a GPipe
-pipeline over the ``pp`` axis (``ops/pipeline.py``). Expert parallelism (an
-``ep`` axis above 1) is not ported yet (ROADMAP.md A.3).
+pipeline over the ``pp`` axis (``ops/pipeline.py``). With ``num_experts`` the MoE
+layer is expert parallel over ``ep`` (``models/moe.py``).
 
 The MPMD pipeline's stage functions (``transformer_partition_params``,
 ``transformer_stage_forward``, ``transformer_stage_loss``) cut the same
@@ -243,11 +243,13 @@ def _rope(x, positions, theta: float):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], -1)
 
 
-def _mlp(cfg: TransformerConfig, layer, h):
+def _mlp(cfg: TransformerConfig, layer, h, mesh=None):
     """The layer's feed-forward block: the MoE layer when
-    ``cfg.num_experts``, else the dense SwiGLU MLP."""
+    ``cfg.num_experts`` (expert parallel on a mesh), else the dense SwiGLU
+    MLP."""
     if cfg.num_experts:
-        return moe.moe_apply(cfg, layer["moe"], h, device=h.device)
+        return moe.moe_apply(cfg, layer["moe"], h, mesh=mesh,
+                             device=h.device)
     dt = cfg.dtype
     m = layer["mlp"]
     gate = F.silu(h @ m["w1"].to(dt))
@@ -302,7 +304,7 @@ def _layer_body(cfg, layer, x, positions, return_kv, mesh):
     o = _attention(cfg, q, k, v, mesh)
     o = torch.einsum("bshd,hde->bse", o, a["wo"].to(dt))
     x = x + o
-    y = _mlp(cfg, layer, _rmsnorm(x, layer["ln2"]))
+    y = _mlp(cfg, layer, _rmsnorm(x, layer["ln2"]), mesh)
     if return_kv:
         # KV-cache prefill (models/generate.py): hand back the
         # already-computed rotated K and V instead of recomputing them.
@@ -370,10 +372,6 @@ def _apply_on_mesh(params, tokens, cfg, mesh, positions, dev):
     from torch.distributed.tensor.experimental import implicit_replication
 
     from ray_tpu_torch.parallel.sharding import place, replicated
-    if cfg.num_experts and mesh_sizes(mesh).get("ep", 1) > 1:
-        raise NotImplementedError("expert parallelism (an 'ep' mesh axis "
-                                  "above 1) is not ported yet (ROADMAP.md "
-                                  "A.3)")
     tokens = _batch_on_mesh(tokens, mesh, dev)
     # plain params count as replicated, as unplaced arrays do under jit
     params = _map_tree(params, lambda a: a if isinstance(a, DTensor)

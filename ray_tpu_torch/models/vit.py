@@ -12,6 +12,13 @@ of that shape to the flash kernels (``ops/attention.py``), where the TPU's
 ``auto`` took the plain path: its flash kernel needs sequences and head_dim
 in multiples of 128 (``ray_tpu/ops/attention.py``), the port's kernels take
 any length.
+
+On a mesh (``mesh=``, a ``parallel.build_mesh`` mesh) the params are
+DTensors placed by ``vit_logical_axes`` and the batch is sharded over the
+data axes. The patch embedding and the head run on each rank's local rows
+(``shard_map``, with the fsdp-sharded projection, [CLS], positions and head
+gathered, as the LM gathers its embedding table); the encoder is the LM's
+mesh path, attention through the kernels on each rank's local blocks.
 """
 
 from __future__ import annotations
@@ -22,9 +29,13 @@ from typing import Any, Dict
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.transformer import (TransformerConfig, _rmsnorm,
-                                              _stage_apply, check_device,
-                                              layers_init, unstack_layers)
+from ray_tpu_torch.models.transformer import (TransformerConfig,
+                                              _batch_on_mesh, _map_tree,
+                                              _rmsnorm, _stage_apply,
+                                              check_device, layers_init,
+                                              transformer_logical_axes,
+                                              unstack_layers)
+from ray_tpu_torch.parallel.mesh import data_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,28 +103,92 @@ def _patchify(images, patch: int):
     return x.reshape(b, gh * gw, patch * patch * c)
 
 
-def vit_apply(params, images, cfg: ViTConfig, *, device=None):
-    """images: [B, H, W, 3] float -> logits [B, num_classes] f32."""
+def vit_logical_axes(cfg: ViTConfig) -> Dict[str, Any]:
+    """Per-leaf logical dim names of the params, the JAX ViT step's
+    (``ray_tpu/train/jax_step.py``): the encoder's layers as the LM's."""
+    return {
+        "patch_proj": (None, "embed"),
+        "cls": (None, None, "embed"),
+        "pos": (None, None, "embed"),
+        "layers": transformer_logical_axes(cfg.encoder_config())["layers"],
+        "ln_f": (None,),
+        "head": ("embed", None),
+    }
+
+
+def _embed(images, patch_proj, cls, pos, cfg: ViTConfig):
+    """[B, H, W, 3] images -> [B, S, D] tokens: the patches' projection
+    after the [CLS] token, plus the positions."""
+    dt = cfg.dtype
+    x = _patchify(images.to(dt), cfg.patch_size) @ patch_proj.to(dt)
+    cls = cls.to(dt).expand(x.shape[0], 1, cfg.d_model)
+    return torch.cat([cls, x], dim=1) + pos.to(dt)
+
+
+def _classify(x, ln_f, head, cfg: ViTConfig):
+    """The final norm and the head on the [CLS] token -> f32 logits."""
+    x = _rmsnorm(x, ln_f)
+    return (x[:, 0, :] @ head.to(cfg.dtype)).float()
+
+
+def vit_apply(params, images, cfg: ViTConfig, *, mesh=None, device=None):
+    """images: [B, H, W, 3] float -> logits [B, num_classes] f32. With
+    ``mesh`` the params are DTensors (or tensors with the same value on
+    every rank), the images a DTensor or the same tensor on every rank, and
+    the logits a DTensor with the batch over the data axes."""
     dev = resolve_device(device)
     check_device(params, dev, key="patch_proj")
     enc = cfg.encoder_config()
-    dt = cfg.dtype
-    x = _patchify(images.to(dev, dt), cfg.patch_size)
-    x = x @ params["patch_proj"].to(dt)
-    cls = params["cls"].to(dt).expand(x.shape[0], 1, cfg.d_model)
-    x = torch.cat([cls, x], dim=1) + params["pos"].to(dt)
+    if mesh is not None:
+        return _apply_on_mesh(params, images, cfg, mesh, dev)
+    x = _embed(images.to(dev), params["patch_proj"], params["cls"],
+               params["pos"], cfg)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=dev).expand(b, s)
     x = _stage_apply(enc, unstack_layers(params), x, positions)
-    x = _rmsnorm(x, params["ln_f"])
-    return (x[:, 0, :] @ params["head"].to(dt)).float()
+    return _classify(x, params["ln_f"], params["head"], cfg)
 
 
-def vit_loss(params, batch, cfg: ViTConfig, *, device=None):
+def _apply_on_mesh(params, images, cfg, mesh, dev):
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from ray_tpu_torch.parallel.sharding import place, replicated, shard_map
+    images = _batch_on_mesh(images, mesh, dev)
+    # plain params count as replicated, as unplaced arrays do under jit
+    params = _map_tree(params, lambda a: a if isinstance(a, DTensor)
+                       else place(a, replicated(mesh)))
+    rows = (data_axes(), None, None)
+    x = shard_map(lambda im, w, c, p: _embed(im, w, c, p, cfg), mesh,
+                  (rows + (None,), (), (), ()), rows)(
+        images, params["patch_proj"], params["cls"], params["pos"])
+    b, s = x.shape[:2]
+    with implicit_replication():
+        positions = place(torch.arange(s, device=dev).expand(b, s),
+                          replicated(mesh))
+        x = _stage_apply(cfg.encoder_config(), unstack_layers(params), x,
+                         positions, mesh)
+    return shard_map(lambda x, ln, w: _classify(x, ln, w, cfg), mesh,
+                     (rows, (), ()), (data_axes(), None))(
+        x, params["ln_f"], params["head"])
+
+
+def vit_loss(params, batch, cfg: ViTConfig, *, mesh=None, device=None):
     """batch: {"image": [B, H, W, 3], "label": [B] int} -> (mean
-    cross-entropy, accuracy), both f32 scalars."""
-    logits = vit_apply(params, batch["image"], cfg, device=device)
-    labels = batch["label"].to(logits.device).long()
+    cross-entropy, accuracy), both f32 scalars; with ``mesh`` both are
+    global, 0-d DTensors."""
+    logits = vit_apply(params, batch["image"], cfg, mesh=mesh, device=device)
+    labels = batch["label"]
+    if mesh is None:
+        return _loss_and_accuracy(logits, labels.to(logits.device))
+    from torch.distributed.tensor.experimental import implicit_replication
+    labels = _batch_on_mesh(labels, mesh, resolve_device(device))
+    with implicit_replication():
+        return _loss_and_accuracy(logits, labels)
+
+
+def _loss_and_accuracy(logits, labels):
+    labels = labels.long()
     logp = torch.log_softmax(logits, dim=-1)
     loss = -logp.gather(1, labels[:, None]).mean()
     acc = (logits.argmax(-1) == labels).float().mean()

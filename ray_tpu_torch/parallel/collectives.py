@@ -69,6 +69,12 @@ def axis_size(axis: AxisName) -> int:
     return _axis_mesh(axis).size()
 
 
+def axis_group(axis: AxisName):
+    """The process group of ``axis`` (of the flattened tuple), for a
+    collective of the caller's own."""
+    return _axis_mesh(axis).get_group()
+
+
 def _all_reduce(x, am, op):
     out = x.detach().clone().contiguous()
     dist.all_reduce(out, op=op, group=am.get_group())

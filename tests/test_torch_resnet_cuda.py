@@ -9,12 +9,17 @@ Tolerance: the small f32 model on the card (cuDNN, TF32 off for the test)
 against the CPU, 1e-3 on logits, the loss, every updated parameter and
 every batch statistic: the two sum the convolutions in other orders, and
 train-mode BatchNorm over 4 values a channel (1x1 maps at batch 4)
-magnifies that rounding.
+magnifies that rounding. The global BatchNorm of the mesh path with a
+one-rank NCCL group against the one-device BatchNorm on the same input:
+1e-5 of each output's largest magnitude at f32 (flax's E[x²] − E[x]²
+against PyTorch's variance, both in f32), 2e-2 at bf16 (the outputs'
+rounding).
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.models import resnet as tres
 from ray_tpu_torch.train import make_resnet_train_step
@@ -158,3 +163,49 @@ def test_default_step_lives_on_the_card(cuda_device):
     state, metrics = step_fn(state, batch)
     assert metrics["loss"].device.type == "cuda"
     assert np.isfinite(metrics["loss"].item()) and state.step == 1
+
+
+@pytest.fixture
+def one_rank_group(cuda_device):
+    """The default group of a one-rank NCCL world, destroyed after."""
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    yield dist.group.WORLD
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_global_batch_norm_at_one_rank_is_batch_norm(one_rank_group, dtype,
+                                                     tol):
+    """``batch_norm`` with a group (the mesh path: PyTorch's SyncBatchNorm
+    kernels, channels_last) against the one-device path, its output, new
+    statistics and the gradients of x, scale and bias."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    c = 64
+    x = (torch.randn(32, c, 28, 28, generator=gen, device="cuda") * 2 + 0.5) \
+        .to(dtype).contiguous(memory_format=torch.channels_last)
+    dy = torch.randn(x.shape, generator=gen, device="cuda").to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+    params = {"scale": 0.5 + torch.rand(c, generator=gen, device="cuda"),
+              "bias": 0.1 * torch.randn(c, generator=gen, device="cuda")}
+    stats = {"mean": torch.zeros(c, device="cuda"),
+             "var": torch.ones(c, device="cuda")}
+    outs = []
+    for group in (None, one_rank_group):
+        xs = x.detach().clone().requires_grad_(True)
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        y, new = tres.batch_norm(xs, ps, stats, True, group)
+        y.backward(dy)
+        outs.append({"y": y, "mean": new["mean"], "var": new["var"],
+                     "dx": xs.grad, "dscale": ps["scale"].grad,
+                     "dbias": ps["bias"].grad})
+    for k, want in outs[0].items():
+        got = outs[1][k]
+        assert got.dtype == want.dtype and got.shape == want.shape, k
+        err = ((got.float() - want.float()).abs().max()
+               / want.float().abs().max()).item()
+        assert err <= tol, (k, err)

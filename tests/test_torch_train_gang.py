@@ -22,7 +22,13 @@ runtime, held to the JAX package's trainer on a JAX ``Cluster``.
   flagship configuration for 3 steps, from the JAX package's initial
   weights (``params_from_jax``); their losses and gradient norms must equal
   the JAX ``make_lm_train_step`` on ``build_mesh(MeshSpec(dp=1))`` over the
-  whole batch within ``STEP_TOL`` (f32).
+  whole batch within ``STEP_TOL`` (f32). The same for the ViT step
+  (``make_vit_train_step(cfg, mesh)``, f32, losses within ``STEP_TOL``,
+  accuracies equal) and the ResNet step (``make_resnet_train_step(mesh)``
+  on a small ResNet computing in float64, as ``tests/test_torch_mesh_steps.py``
+  holds it: losses within ``F64_LOSS_TOL`` and the final BatchNorm running
+  variances of the first layer within ``F64_TOL``, which only BatchNorm
+  over the global batch meets).
 - *The port's own rules:* a gang left at ``use_gpu=None`` on a cluster
   without cards raises at ``fit()`` at once; workers take their cards from
   their bundles; an NCCL gang of two ranks on one card raises
@@ -57,6 +63,11 @@ DDP_TOL = 1e-6             # the same torch loop in both trainers
 LM_CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4,
               n_kv_heads=2, d_ff=64, max_seq=32, attn_impl="reference")
 LM_B, LM_S, LM_LR = 8, 16, 1e-3
+F64_TOL = 1e-6             # the ResNet step computing in float64
+F64_LOSS_TOL = 1e-5        # its losses (the third one near 4e-3)
+VIT_CFG = dict(image_size=16, patch_size=4, num_classes=10, d_model=32,
+               n_layers=2, n_heads=4)
+RESNET_STAGES, RESNET_SIZE, RESNET_LR = (1, 1, 1, 1), 32, 0.01
 
 # ---------------------------------------------------------------------------
 # loops (run in the workers of either package)
@@ -243,6 +254,45 @@ def loop_lm_mesh(config):
                         "step": int(m["step"]),
                         "backend": dist.get_backend(),
                         "world": dist.get_world_size()})
+
+
+def loop_vision_mesh(config):
+    """The port's ViT or ResNet train step (``config["model"]``) over a dp
+    mesh of the gang's ranks."""
+    import logging
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.models import ResNet, ViTConfig, convert
+    from ray_tpu_torch.parallel import MeshSpec, build_mesh
+    from ray_tpu_torch.train import make_resnet_train_step, make_vit_train_step
+    torch.set_num_threads(1)
+    logging.getLogger("torch.distributed.tensor").setLevel(logging.ERROR)
+    mesh = build_mesh(MeshSpec(dp=dist.get_world_size()), device="cpu")
+    if config["model"] == "vit":
+        cfg = ViTConfig(dtype=torch.float32, **VIT_CFG)
+        init_fn, step_fn, place = make_vit_train_step(
+            cfg, mesh, learning_rate=LM_LR, device="cpu")
+        state = init_fn(convert.vit_params_from_jax(config["init"], cfg,
+                                                    device="cpu"))
+    else:
+        init_fn, step_fn, place = make_resnet_train_step(
+            mesh, num_classes=10, learning_rate=RESNET_LR,
+            dtype=torch.float64, stage_sizes=RESNET_STAGES, device="cpu")
+        state = init_fn(convert.resnet_variables_from_jax(
+            config["init"], ResNet(RESNET_STAGES, 10), device="cpu"))
+    batch = place({k: np.array(v) for k, v in config["batch"].items()})
+    for _ in range(3):
+        state, m = step_fn(state, batch)
+        report = {"loss": m["loss"].item(), "accuracy": m["accuracy"].item(),
+                  "step": int(m["step"]), "backend": dist.get_backend(),
+                  "world": dist.get_world_size()}
+        if config["model"] == "resnet":
+            report["bn_init_var"] = state.params["batch_stats"]["bn_init"][
+                "var"].full_tensor().tolist()
+        session.report(report)
 
 
 def loop_device(config):
@@ -492,6 +542,85 @@ def _jax_lm_steps():
     return {"params": init, "tokens": tokens, "metrics": metrics}
 
 
+def _vision_batch(size):
+    rng = np.random.default_rng(2)
+    return {"image": rng.standard_normal((LM_B, size, size, 3))
+            .astype(np.float32),
+            "label": rng.integers(0, 10, (LM_B,)).astype(np.int32)}
+
+
+def _jax_vision_steps(model):
+    """The JAX ViT or ResNet step on build_mesh(MeshSpec(dp=1)) over the
+    whole batch: its initial weights (numpy), the batch and 3 steps'
+    metrics (and, for the ResNet, the first BatchNorm's running
+    variances). The ResNet is the small model computing in float64, its
+    variables flax's tree filled with seeded values (flax's init zeroes
+    each block's last BatchNorm scale), its state built as its init_fn
+    builds it, without flax's eager init."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from ray_tpu.models import resnet as jres
+    from ray_tpu.models import vit as jvit
+    from ray_tpu.parallel import MeshSpec, build_mesh
+    from ray_tpu.parallel.sharding import replicated
+    from ray_tpu.train import jax_step
+    mesh = build_mesh(MeshSpec(dp=1), devices=jax.devices()[:1])
+    if model == "vit":
+        init_fn, step_fn, place = jax_step.make_vit_train_step(
+            jvit.ViTConfig(dtype=jnp.float32, **VIT_CFG), mesh,
+            learning_rate=LM_LR)
+        state = init_fn(jax.random.PRNGKey(0))
+        init = jax.tree.map(np.array, state.params)  # the step donates it
+        batch = _vision_batch(VIT_CFG["image_size"])
+        return init, batch, _jax_vision_run(step_fn, state, place(batch))
+    net = jres.ResNet(list(RESNET_STAGES), 10, jnp.float64)
+    shapes = jax.eval_shape(lambda: net.clone(dtype=jnp.float32).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, RESNET_SIZE, RESNET_SIZE, 3)),
+        train=True))
+    rng = np.random.default_rng(4)
+
+    def fill(path, leaf):
+        name, shape = path[-1].key, leaf.shape
+        if name == "kernel":
+            x = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name in ("scale", "var"):
+            x = rng.uniform(0.5, 1.5, shape)
+        else:
+            x = 0.1 * rng.standard_normal(shape)
+        return x.astype(np.float32)
+
+    init = jax.tree_util.tree_map_with_path(fill, shapes)
+    tx = optax.sgd(RESNET_LR, momentum=0.9, nesterov=True)
+    build = jax_step.resnet50
+    jax_step.resnet50 = lambda num_classes: net
+    try:
+        with jax.enable_x64(True):
+            _, step_fn, place = jax_step.make_resnet_train_step(
+                mesh, num_classes=10, image_size=RESNET_SIZE, tx=tx)
+            variables = jax.device_put(init, replicated(mesh))
+            state = jax_step.TrainState(
+                variables, jax.jit(tx.init)(variables["params"]),
+                jax.device_put(jnp.zeros((), jnp.int32), replicated(mesh)))
+            batch = _vision_batch(RESNET_SIZE)
+            return init, batch, _jax_vision_run(step_fn, state,
+                                                place(batch))
+    finally:
+        jax_step.resnet50 = build
+
+
+def _jax_vision_run(step_fn, state, batch):
+    metrics = []
+    for i in range(3):
+        state, m = step_fn(state, batch)
+        metrics.append((float(m["loss"]), float(m["accuracy"]), i + 1))
+    stats = state.params.get("batch_stats") if isinstance(
+        state.params, dict) else None
+    return metrics, (None if not stats else
+                     np.array(stats["bn_init"]["var"]).tolist())
+
+
 def _jax_run(root):
     import sys
 
@@ -502,7 +631,8 @@ def _jax_run(root):
     from ray_tpu.core.runtime_cluster import ClusterRuntime
     module = sys.modules[__name__]
     cloudpickle.register_pickle_by_value(module)
-    out = {"_lm": _jax_lm_steps()}
+    out = {"_lm": _jax_lm_steps(),
+           "_vision": {m: _jax_vision_steps(m) for m in ("vit", "resnet")}}
     c = JaxCluster(initialize_head=True,
                    head_node_args={"num_cpus": HEAD_CPUS},
                    health_timeout_s=HEALTH_TIMEOUT_S)
@@ -734,6 +864,31 @@ def test_lm_step_in_a_two_rank_gang_matches_jax_dp1(cluster, jax_runs,
     np.testing.assert_allclose([m[:2] for m in got], [m[:2] for m in want],
                                rtol=STEP_TOL)
     assert want[-1][0] < want[0][0]
+    assert {m["backend"] for m in r.metrics_history} == {"gloo"}
+    assert {m["world"] for m in r.metrics_history} == {2}
+
+
+@pytest.mark.parametrize("model", ["vit", "resnet"])
+def test_vision_step_in_a_two_rank_gang_matches_jax_dp1(cluster, jax_runs,
+                                                        tmp_path, model):
+    from ray_tpu_torch.train import ScalingConfig, TorchTrainer
+    init, batch, (want, want_var) = jax_runs["_vision"][model]
+    r = TorchTrainer(
+        loop_vision_mesh,
+        train_loop_config={"model": model, "init": init, "batch": batch},
+        scaling_config=ScalingConfig(num_workers=2, use_gpu=False),
+        run_config=_run_config("ray_tpu_torch", str(tmp_path), model)).fit()
+    assert r.error is None, r.error
+    got = [(m["loss"], m["accuracy"], m["step"]) for m in r.metrics_history]
+    assert [m[2] for m in got] == [m[2] for m in want] == [1, 2, 3]
+    tol = STEP_TOL if model == "vit" else F64_LOSS_TOL
+    np.testing.assert_allclose([m[0] for m in got], [m[0] for m in want],
+                               rtol=tol)
+    assert [m[1] for m in got] == [m[1] for m in want]
+    assert want[-1][0] < want[0][0]
+    if model == "resnet":
+        np.testing.assert_allclose(r.metrics_history[-1]["bn_init_var"],
+                                   want_var, rtol=F64_TOL)
     assert {m["backend"] for m in r.metrics_history} == {"gloo"}
     assert {m["world"] for m in r.metrics_history} == {2}
 

@@ -207,18 +207,15 @@ def _world_body(rank, inputs):
     batch = SampleBatch(inputs["rl/batch"])
     out["rl/stats"] = [learner.update(batch), learner.update(batch)]
     out["rl/weights"] = learner.get_weights()
-    # refusals: pipeline stages off the pp axis; expert parallelism
-    out["refused"] = []
-    for spec_kw, kw in (({"dp": 4}, dict(pp_stages=2, num_microbatches=2)),
-                        ({"ep": 4}, dict(num_experts=4, expert_top_k=2))):
-        c = _tcfg(**kw)
-        p = ttf.transformer_init(torch.Generator().manual_seed(0), c,
-                                 device="cpu")
-        try:
-            ttf.transformer_apply(p, torch.zeros(4, 8, dtype=torch.long), c,
-                                  mesh=mesh_of(spec_kw), device="cpu")
-        except (ValueError, NotImplementedError) as e:
-            out["refused"].append((type(e).__name__, str(e)))
+    # the refusal: pipeline stages off the pp axis
+    c = _tcfg(pp_stages=2, num_microbatches=2)
+    p = ttf.transformer_init(torch.Generator().manual_seed(0), c,
+                             device="cpu")
+    try:
+        ttf.transformer_apply(p, torch.zeros(4, 8, dtype=torch.long), c,
+                              mesh=mesh_of({"dp": 4}), device="cpu")
+    except ValueError as e:
+        out["refused"] = (type(e).__name__, str(e))
     return out
 
 
@@ -439,11 +436,10 @@ def test_jax_pipeline_on_a_pp_axis_of_1_applies_stage_0_only(world):
     assert abs(got - _dense_of_pp(world)[0]) > 1e-3
 
 
-def test_port_refuses_pp_off_the_axis_and_expert_parallelism(world):
+def test_port_refuses_pipeline_stages_off_the_pp_axis(world):
     for r in range(WORLD):
-        (pp_type, pp_msg), (ep_type, ep_msg) = world["port"][r]["refused"]
+        pp_type, pp_msg = world["port"][r]["refused"]
         assert pp_type == "ValueError" and "'pp' axis" in pp_msg
-        assert ep_type == "NotImplementedError" and "ROADMAP" in ep_msg
 
 
 @pytest.mark.parametrize("name", sorted(SP_CASES))
