@@ -111,9 +111,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    fails the run); env steps/s (the sum of ``num_env_steps_sampled`` over
    the sum of ``time_this_iter_s``) and the median iteration ms with its
    sample and update parts, beside phase 13's hand loop over as many
-   iterations in this same run and beside the hand loop run once more just
-   before the drivers (the process's later state: an update reads slower
-   after phase 13's profiled one), with the ratios. Then ``save``, the
+   iterations in this same run, with the ratio. Then ``save``, the
    learner as a remote actor holding one card for 3 iterations (finite
    stats), and a fresh ``build()`` that ``restore`` s the checkpoint:
    bitwise-equal weights, the same iteration, one more ``train()``; and one
@@ -142,7 +140,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    settings for 3 iterations (finite TD loss, epsilon falling), SAC to its
    gate (>= 100 within 40 iterations), TD3 on Pendulum to its assertion
    (>= -700 within 60, stopping when met) and DDPG for 3 iterations; each
-   with env steps/s, updates/s and the median update ms (windows of 20
+   with env steps/s, updates/s and the median update ms (3 windows of 20
    updates on minibatches from its own buffer, each ending in a
    synchronize), and a bitwise save -> build() -> restore.
 20. Offline on the card: ``collect_experiences`` with the JAX tests'
@@ -209,7 +207,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    cut from 256) and records each batch's prompts in order; started by
    ``serve.run(..., http_host="127.0.0.1")`` on an ephemeral port. 8
    client threads each POST one seeded prompt at once, for one warm round
-   and then 4 timed rounds. Every response must be 200; each response's tokens must equal
+   and then 2 timed rounds. Every response must be 200; each response's tokens must equal
    those of a direct ``generate`` of the batch the deployment formed, in
    its row order; the forward kernel must launch n_layers times per
    ``generate`` call the deployment made (and no backward kernel); after
@@ -232,8 +230,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    the flagship on the card from seed 0 (phase 3's configuration, bf16,
    full width and depth), checks the flash forward against its plain
    version in its process (phase 2's bf16 tolerance), and runs
-   ``generate`` on phase 3's 8 seeded prompts of 128 tokens for 256 greedy
-   tokens: its tokens (through the store) must equal the driver's direct
+   ``generate`` on phase 3's 8 seeded prompts of 128 tokens for 64 greedy
+   tokens (cut from 256: the phase measures the path): its tokens (through the store) must equal the driver's direct
    ``generate`` of the same weights and prompts in this run, with 10
    forward launches and no backward one in the worker; its tokens/s
    (measured in the worker) is printed beside the driver's and their
@@ -292,7 +290,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    with a ``session.report`` each step, the flash launches counted in the
    worker from 0 before the timed steps (they must be (60, 30, 30, 30)),
    and its peak card memory; then ResNet-50 at phase 11's point (3 warm
-   and 10 timed steps, no flash launch). The gang's losses must be within
+   and 5 timed steps, no flash launch). The gang's losses must be within
    ``GANG_LOSS_TOL`` of the driver's and its first ResNet loss within
    ``RESNET_FIRST_LOSS_TOL`` of phase 11's. Prints step ms, tokens/s, MFU,
    the ratio to the driver's step ms, the seconds from ``fit()`` to the
@@ -305,8 +303,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``DATA_WORDS``) through ``from_items(parallelism=16)`` ->
    ``tokenize_and_pack(seq_len=2048)`` -> ``random_shuffle(seed=3)``,
    materialized on the cluster's CPU workers, with its documents, bytes,
-   rows, seconds and tokens/s; and 13 blocks of 256 seeded uint8 images at
-   224² (``range(...).map_batches(data_images)``, 500 MB). Then
+   rows, seconds and tokens/s; and 8 blocks of 256 seeded uint8 images at
+   224² (``range(...).map_batches(data_images)``, 308 MB). Then
    ``TorchTrainer(data_gang_loop, datasets={"train": ..., "images": ...},
    scaling_config=ScalingConfig(num_workers=1))``: the worker trains the
    flagship at phase 28's cell from its shard's batches
@@ -315,7 +313,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    30), with the wait for each batch, then drains the rest of its shard
    through the copy to the card (rows/s, MB/s); then ResNet-50 from the
    image shard (each batch copied to the card and converted there), 3 warm
-   and 10 timed steps. The losses must be within ``GANG_LOSS_TOL`` of the
+   and 5 timed steps. The losses must be within ``GANG_LOSS_TOL`` of the
    driver's steps on the same rows and the first ResNet loss within
    ``RESNET_FIRST_LOSS_TOL``. Prints step ms and images/s beside phase
    28's, tokens/s, MFU and the seconds from ``fit()`` to the first report.
@@ -327,7 +325,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    proxy and every replica are worker processes. ``ServeLM``, a
    module-level deployment with ``ray_actor_options={"num_gpus": 1}``,
    draws the flagship's weights from seed 24 on its replica's card and
-   serves phase 24's traffic (8 clients x 5 rounds, 1 warm, seed-24
+   serves phase 24's traffic (8 clients x 3 rounds, 1 warm, seed-24
    prompts of 128 tokens, ``HTTP_NEW`` = 64 new tokens) behind the same
    ``@serve.batch``. Every status must be 200, each prompt in exactly one batch, every
    answer equal to the driver's direct ``generate`` of its batch with the
@@ -390,9 +388,33 @@ Phases, each of which fails the run (non-zero exit) on any error:
    client's round trips/s and both ``generate`` s' tokens/s beside the
    driver's.
 
+33. The elastic and durable runtime (``python -m ray_tpu_torch up``,
+   the autoscaler, ``submit``, workflows, ``down``). A JSON spec with a head
+   of ``{"CPU": 2}`` and no card, the ``fake`` provider and a node type
+   ``gpu_worker`` of ``{"CPU": 1, "GPU": 1}`` (0 to 1 nodes, idle timeout
+   3 s) goes ``up`` with a ``TMPDIR`` of its own; the state API must show
+   one node at ``GPU`` 0. A ``submit`` ted job runs a workflow on a
+   directory storage: a ``num_gpus=1`` step that is phase 32's
+   ``control_generate_task`` (seed 32, the same prompts, 32 new tokens), a
+   CPU step that digests its tokens, and a CPU step that fails on its first
+   run. The job must end ``FAILED`` with the workflow resumable, the
+   autoscaler must have launched exactly one ``gpu_worker`` node, the
+   digest step's checkpoint must equal phase 32's job digest, and the card
+   step's worker must count 10 forward launches. The idle GPU node must
+   then be terminated: no GPU node alive, the state API at ``GPU`` 0 and
+   no more card contexts than before the phase. A second job calls
+   ``workflow.resume``: it must end ``SUCCEEDED`` with the same digest,
+   run no card step (no GPU node launched) and see ``GPU`` 0. ``down``
+   must leave no head session, session process, segment, state file or
+   extra card context. Prints the seconds from ``submit`` to the GPU
+   node's registration and to the card step's answer, the GPU worker's
+   spawn seconds, the flagship's tokens/s in it, the seconds from the card
+   step's answer to the node's termination, the resume's seconds and the
+   phase's.
+
 No flash kernel runs on phases 13-22 and 31 (the JAX RL stack reaches no
 Pallas kernel): each path's counts must stay 0, as they must for ring,
-Ulysses and the PPO learner in phase 23. Phases 17-32 print their
+Ulysses and the PPO learner in phase 23. Phases 17-33 print their
 seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -2006,7 +2028,7 @@ def _hand_over(run, n):
                 update_ms=1e3 * float(np.median(run["update_s"][:n])))
 
 
-def _sampling_rounds(rt, n=12):
+def _sampling_rounds(rt, n=6):     # cut from 12 (PERF.md §6)
     """Median ms of one sampling round of phase 13's two workers at fixed
     weights: in turn in this thread, and as two actors of the runtime
     sampling at once (as ``WorkerSet.sample`` does)."""
@@ -2044,8 +2066,9 @@ def _check_finite_info(result, tag):
 
 def phase_ppo_drivers(card, hand):
     """PPO through ``PPOConfig().build().train()`` on the card, against
-    phase 13's hand loop (``hand``) from this same run and the hand loop
-    run again just before."""
+    phase 13's hand loop (``hand``) from this same run. (The hand loop no
+    longer runs again just before: a repeated timed window, cut to pay for
+    phase 33's seconds; PERF.md §6.)"""
     import tempfile
     import threading
 
@@ -2053,9 +2076,6 @@ def phase_ppo_drivers(card, hand):
     from ray_tpu_torch.core.runtime_local import THREAD_PREFIX
     from ray_tpu_torch.rl.learner import _named_leaves as rl_leaves
     tag = "ppo-drivers"
-    # the hand loop once more in the process's present state (phase 13's
-    # profiled update and later phases ran since), for a like-for-like ratio
-    before, _, _, _ = _ppo_cartpole(None, "ppo-hand-before-drivers")
     rt.init(local_mode=True)
     _reset_launch_counts()
     try:
@@ -2088,11 +2108,9 @@ def phase_ppo_drivers(card, hand):
             sample_ms=1e3 * float(np.median(spent["sample"])),
             update_ms=1e3 * float(np.median(spent["update"])),
             best_reward=best, gate_iteration=n, rewards=rewards,
-            hand_phase13=_hand_over(hand, n),
-            hand_before=_hand_over(before, n))
-        for k in ("hand_phase13", "hand_before"):
-            out[k]["ratio"] = (out["env_steps_per_s"]
-                               / out[k]["env_steps_per_s"])
+            hand_phase13=_hand_over(hand, n))
+        out["hand_phase13"]["ratio"] = (
+            out["env_steps_per_s"] / out["hand_phase13"]["env_steps_per_s"])
         print(f"[{tag}] PPOConfig().build().train() with the learner and 2 "
               f"workers on {devices}: gate met at iteration {n} (best "
               f"{best:.2f}); {steps} env steps in {secs:.2f} s = "
@@ -2100,14 +2118,12 @@ def phase_ppo_drivers(card, hand):
               f"{out['iteration_ms']:.1f} ms (sample {out['sample_ms']:.1f}, "
               f"update {out['update_ms']:.1f}); mean reward by iteration "
               f"{rewards} on {card}", flush=True)
-        for k, what in (("hand_phase13", "phase 13's hand loop"),
-                        ("hand_before", "the hand loop just before")):
-            h = out[k]
-            print(f"[{tag}] {what}, its first {n} iterations in this run: "
-                  f"{h['env_steps_per_s']:.1f} env steps/s, median "
-                  f"iteration {h['iteration_ms']:.1f} ms (sample "
-                  f"{h['sample_ms']:.1f}, update {h['update_ms']:.1f}); "
-                  f"drivers / hand loop = {h['ratio']:.3f}", flush=True)
+        h = out["hand_phase13"]
+        print(f"[{tag}] phase 13's hand loop, its first {n} iterations in "
+              f"this run: {h['env_steps_per_s']:.1f} env steps/s, median "
+              f"iteration {h['iteration_ms']:.1f} ms (sample "
+              f"{h['sample_ms']:.1f}, update {h['update_ms']:.1f}); "
+              f"drivers / hand loop = {h['ratio']:.3f}", flush=True)
         with tempfile.TemporaryDirectory() as tmp:
             ckpt = algo.save(tmp)
             want = algo.get_state()["weights"]
@@ -2147,7 +2163,7 @@ def phase_ppo_drivers(card, hand):
               f"train() at iteration {fresh.iteration}", flush=True)
         out["sampling_round"] = _sampling_rounds(rt)
         print(f"[{tag}] one sampling round of both workers at fixed "
-              f"weights (medians of 12): in turn in this thread "
+              f"weights (medians of 6): in turn in this thread "
               f"{out['sampling_round']['in_turn_ms']:.1f} ms, as two "
               f"runtime actors at once "
               f"{out['sampling_round']['actors_ms']:.1f} ms", flush=True)
@@ -2628,7 +2644,7 @@ def phase_appo_atari_learner(card):
     return out
 
 
-def _update_window(step, sample, n=20, windows=5):
+def _update_window(step, sample, n=20, windows=3):
     """Median ms of one update over ``windows`` windows of ``n`` updates,
     each on a fresh minibatch from the algorithm's own buffer (the numpy
     draw and the copy to the card included, as in its training step); each
@@ -3640,7 +3656,7 @@ def _ppo_on_mesh(card, mesh):
 # ---------------------------------------------------------------------------
 
 HTTP_CLIENTS = 8
-HTTP_ROUNDS = 5          # one warm round, then the timed ones
+HTTP_ROUNDS = 3          # one warm round, then the timed ones (cut from 5)
 HTTP_BATCH_WAIT_S = 0.1  # the @serve.batch window
 # greedy tokens a request, cut from the serve cell's 256 (phases 24 and
 # 30): each is a host-bound decode loop, and the whole script must stay
@@ -3796,7 +3812,9 @@ def phase_http_serve(card, direct_tokens_per_s):
 # phase 25: the cluster runtime, the flagship in a GPU worker process
 # ---------------------------------------------------------------------------
 
-CLUSTER_BATCH, CLUSTER_PROMPT, CLUSTER_NEW = 8, 128, 256
+# 64 new tokens, cut from the serve cell's 256 (PERF.md §6): the
+# phase measures a GPU worker's path, not the decode loop
+CLUSTER_BATCH, CLUSTER_PROMPT, CLUSTER_NEW = 8, 128, 64
 # The store holds the embedding table on its way in and its double on its
 # way out, with this much room left for everything else.
 STORE_SLACK = 64 << 20
@@ -3890,11 +3908,12 @@ def _shm_free():
     return int(out.splitlines()[-1].split()[3])
 
 
-def _session_processes():
-    """Live (not zombie) processes of the port's cluster on this host."""
+def _session_processes(marks=("ray_tpu_torch.cluster.worker_main",
+                               "ray_tpu_torch.cluster.worker_zygote",
+                               "shmstored")):
+    """Live (not zombie) processes of the port's cluster on this host (of
+    its workers, zygotes and stores unless ``marks`` names others)."""
     import os
-    marks = ("ray_tpu_torch.cluster.worker_main",
-             "ray_tpu_torch.cluster.worker_zygote", "shmstored")
     found = []
     for pid in os.listdir("/proc"):
         if not pid.isdigit():
@@ -4097,7 +4116,7 @@ def phase_cluster(card, direct_tokens_per_s):
 # ---------------------------------------------------------------------------
 
 CG_SHAPE = (8, 128, 2048)       # the serve cell's activations
-CG_CALLS = 40
+CG_CALLS = 20                   # cut from 40 (PERF.md §6)
 CG_BIG_SLOT = 6 << 20           # holds the 4 MiB bf16 tensor and its pickle
 
 
@@ -4490,7 +4509,8 @@ GANG_TIMED = 3            # after one settling step
 # the embedding's backward); phase 23 holds its one-rank mesh step to the
 # same bound.
 GANG_LOSS_TOL = 2e-3
-RESNET_GANG_WARM, RESNET_GANG_TIMED = 3, 10
+# timed steps cut from 10 to 5 (PERF.md §6): phase 33's seconds
+RESNET_GANG_WARM, RESNET_GANG_TIMED = 3, 5
 # the first ResNet-50 loss (bf16 convolutions, cudnn.benchmark on) in the
 # gang against phase 11's from the same seeded weights and images: cuDNN
 # may time its way to other algorithms in another process
@@ -4763,7 +4783,8 @@ def phase_trainer_gang(card, resnet_run):
 DATA_TEXT_BYTES = 16 << 20      # the synthetic corpus, at least
 DATA_BLOCKS = 16                # from_items' parallelism
 DATA_BATCH = 8                  # the train cell's batch of 8 x 2048
-IMAGE_BLOCKS, IMAGE_BATCH, IMAGE_SIZE = 13, 256, 224
+IMAGE_BLOCKS = RESNET_GANG_WARM + RESNET_GANG_TIMED   # one batch a step
+IMAGE_BATCH, IMAGE_SIZE = 256, 224
 OPTIONAL_FORMATS = ("pyarrow", "pandas", "PIL")
 # The corpus' words (the phase draws documents of them with numpy).
 DATA_WORDS = tuple("""
@@ -6291,6 +6312,302 @@ def phase_control_surface(card):
                 new_tokens=CS_NEW)
 
 
+# ---------------------------------------------------------------------------
+# phase 33: the elastic and durable runtime
+# ---------------------------------------------------------------------------
+
+ED_IDLE_MINUTES = 0.05    # the spec's idle_timeout_minutes: 3 s
+ED_GPU_NODE = {"CPU": 1, "GPU": 1}
+
+
+# The workflow's job. Its two CPU steps live in the job's own file, which
+# imports nothing heavy at its top: a CPU worker that runs them imports it
+# (as ``__rt_main__``) without torch. Only the card step is chip_smoke's.
+_ED_JOB = """
+import hashlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+
+import ray_tpu_torch as rt
+from ray_tpu_torch import workflow
+
+
+def digest_step(result):
+    \"\"\"The tokens' digest (chip_smoke.token_digest's), the card step's
+    launches and tokens/s, and when this step started.\"\"\"
+    tokens, launches, tps, start = result
+    digest = hashlib.sha256(np.ascontiguousarray(
+        np.asarray(tokens), dtype=np.int64).tobytes()).hexdigest()[:16]
+    return {"digest": digest, "launches": list(launches),
+            "tokens_per_s": tps, "start": start, "at": time.time()}
+
+
+def flaky_step(summary, marker):
+    \"\"\"Fails on its first run (it leaves the marker file), then returns
+    the digest.\"\"\"
+    if not os.path.exists(marker):
+        open(marker, "w").close()
+        raise RuntimeError("the first run of the last step fails, by design")
+    return summary["digest"]
+
+
+if __name__ == "__main__":
+    rt.init(address=os.environ["RAY_TPU_TORCH_ADDRESS"])
+    root, wf_id, prompt_path, marker, mode = sys.argv[1:6]
+    workflow.set_storage(root)
+    out, error = None, None
+    t0 = time.perf_counter()
+    try:
+        if mode == "run":
+            import chip_smoke as cs
+            gen = rt.remote(num_gpus=1)(cs.control_generate_task).bind(
+                cs.CS_SEED, np.load(prompt_path), cs.CS_NEW)
+            digest = rt.remote(digest_step).bind(gen)
+            out = workflow.run(rt.remote(flaky_step).bind(digest, marker),
+                               workflow_id=wf_id)
+        else:
+            out = workflow.resume(wf_id)
+    except Exception as e:
+        error = repr(e)[:500]
+    print("ED " + json.dumps({
+        "mode": mode, "output": out, "error": error,
+        "workflow_s": time.perf_counter() - t0,
+        "status": workflow.get_status(wf_id),
+        "gpu_total": rt.cluster_resources().get("GPU", 0.0)}), flush=True)
+    rt.shutdown()
+    sys.exit(0 if error is None else 1)
+"""
+
+
+def _ed_gpu_nodes(cli):
+    """(alive, ever) GPU nodes in the conductor's node table."""
+    nodes = [n for n in cli.call("get_nodes")
+             if n["resources_total"].get("GPU")]
+    return [n for n in nodes if n["alive"]], nodes
+
+
+def phase_elastic_durable(card, control_run):
+    """Phase 33: a head launched with no card (``python -m ray_tpu_torch
+    up``); a submitted workflow's card step makes the autoscaler bring up
+    a GPU node, the node goes when idle, and a second job resumes the
+    workflow from its checkpoints without the card."""
+    import os
+    import pickle
+    import shutil
+    import tempfile
+    import threading
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import state
+    from ray_tpu_torch.cluster.protocol import get_client
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.workflow.storage import storage_for
+    tag, steps = "elastic", {}
+    t_phase = time.perf_counter()
+    apps_before = _compute_apps()
+    want = control_run["job"]["digest"]
+    cfg = flagship_cfg()
+    prompt = np.random.default_rng(CS_SEED).integers(
+        0, cfg.vocab_size, (CS_BATCH, CS_PROMPT))
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="ed33")
+    env = dict(os.environ, TMPDIR=work, CS_REPO=repo,
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    paths = {name: os.path.join(work, name) for name in (
+        "spec.json", "job.py", "prompt.npy", "marker", "wf")}
+    spec = {"cluster_name": "elastic33", "provider": {"type": "fake"},
+            "head": {"port": 0, "resources": {"CPU": 2}},
+            "node_types": {"gpu_worker": {"resources": ED_GPU_NODE,
+                                          "min_workers": 0,
+                                          "max_workers": 1}},
+            "max_workers": 1, "idle_timeout_minutes": ED_IDLE_MINUTES}
+    with open(paths["spec.json"], "w") as f:
+        json.dump(spec, f)
+    with open(paths["job.py"], "w") as f:
+        f.write(_ED_JOB)
+    np.save(paths["prompt.npy"], prompt)
+    wf_id = "wf-elastic33"
+    job_args = [sys.executable, paths["job.py"], paths["wf"], wf_id,
+                paths["prompt.npy"], paths["marker"]]
+    up = connected = False
+    down = None
+    try:
+        # 1. `up`: a head with no card, the autoscaler beside it
+        t0 = time.perf_counter()
+        out = _cli(env, "up", paths["spec.json"])
+        up = True
+        steps["up_s"] = time.perf_counter() - t0
+        address = out.split(" up at ")[1].split()[0]
+        cli = get_client(address)
+        rt.init(address=address)
+        connected = True
+        nodes = state.list_nodes()
+        gpus = sum(n["resources_total"].get("GPU", 0.0) for n in nodes
+                   if n["state"] == "ALIVE")
+        print(f"[{tag}] `python -m ray_tpu_torch up` in {steps['up_s']:.2f}"
+              f" s at {address}: state.list_nodes() "
+              f"{[(n['state'], n['is_head_node'], n['resources_total']) for n in nodes]}"
+              f", GPU {gpus:g} on {card}", flush=True)
+        check(len(nodes) == 1 and nodes[0]["is_head_node"] and gpus == 0,
+              f"[{tag}] the launched head is not one node at GPU 0: {nodes}")
+
+        # 2. a job runs the workflow; its card step scales a GPU node up
+        seen = {}
+
+        def watch():
+            while "registered" not in seen and "done" not in seen:
+                alive, _ = _ed_gpu_nodes(cli)
+                if alive:
+                    seen["registered"] = time.time()
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        submitted = time.time()
+        watcher.start()
+        t0 = time.perf_counter()
+        out = _cli(env, "submit", paths["spec.json"], "--", *job_args, "run")
+        steps["run_job_s"] = time.perf_counter() - t0
+        seen["done"] = True
+        watcher.join()
+        ran = _tagged(out, "ED")
+        sid = out.split("submitted job ")[1].split()[0]
+        jobs = JobSubmissionClient(address)
+        info = jobs.get_job_info(sid)
+        store = storage_for(paths["wf"])
+        steps_keys = store.list_prefix(f"{wf_id}/steps")
+        summary = pickle.loads(store.get_bytes(
+            f"{wf_id}/steps/0001_digest_step.pkl"))
+        card_out = pickle.loads(store.get_bytes(
+            f"{wf_id}/steps/0000_control_generate_task.pkl"))
+        _, ever = _ed_gpu_nodes(cli)
+        start = summary["start"]
+        registered = seen.get("registered", float("nan"))
+        steps["to_gpu_node_s"] = registered - submitted
+        steps["to_card_answer_s"] = summary["at"] - submitted
+        steps["gpu_worker_spawn_s"] = start["started"] - registered
+        print(f"[{tag}] job {sid} (run): {info.status}, the workflow "
+              f"{ran['status']} with {ran['error']}; checkpoints "
+              f"{steps_keys}; GPU nodes launched {len(ever)} "
+              f"({[n['resources_total'] for n in ever]}); the card step "
+              f"(pid {start['pid']}) digest {summary['digest']} (phase 32's "
+              f"{want}), flash launches {tuple(summary['launches'])}, "
+              f"{summary['tokens_per_s']:.1f} tokens/s in the worker; "
+              f"seconds from submit: to the GPU node's registration "
+              f"{steps['to_gpu_node_s']:.2f}, to the card step's answer "
+              f"{steps['to_card_answer_s']:.2f}; the GPU worker's spawn "
+              f"{steps['gpu_worker_spawn_s']:.2f} s after the node "
+              f"registered, CUDA and weights "
+              f"{start['cuda_and_weights_s']:.2f} s on {card}", flush=True)
+        check(info.status == "FAILED" and ran["status"] == "FAILED"
+              and "by design" in (ran["error"] or "")
+              and store.exists(f"{wf_id}/dag.pkl"),
+              f"[{tag}] the first job {info.status}, workflow "
+              f"{ran['status']}, error {ran['error']}")
+        check(len(ever) == 1 and ever[0]["resources_total"] == ED_GPU_NODE,
+              f"[{tag}] the autoscaler launched {len(ever)} GPU nodes: "
+              f"{[n['resources_total'] for n in ever]}")
+        card_digest = token_digest(card_out[0])
+        check(summary["digest"] == want and card_digest == want,
+              f"[{tag}] the digest step's checkpoint {summary['digest']} "
+              f"(the card step's tokens {card_digest}) differs from phase "
+              f"32's {want}")
+        check(tuple(summary["launches"]) == (cfg.n_layers, 0, 0, 0),
+              f"[{tag}] the card step's worker launched "
+              f"{summary['launches']}, want ({cfg.n_layers}, 0, 0, 0)")
+
+        # 3. the idle GPU node goes
+        deadline = time.monotonic() + CS_LIMIT_S
+        while True:
+            alive, _ = _ed_gpu_nodes(cli)
+            apps = _compute_apps()
+            if (not alive and len(apps) <= len(apps_before)) \
+                    or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+        gone_at = time.time()
+        # the node idles once the card step's lease is back: from the card
+        # step's answer, and from the job's end
+        steps["answer_to_gone_s"] = gone_at - summary["at"]
+        steps["job_end_to_gone_s"] = gone_at - info.end_time
+        gpus = sum(n["resources_total"].get("GPU", 0.0)
+                   for n in state.list_nodes() if n["state"] == "ALIVE")
+        print(f"[{tag}] the idle GPU node terminated "
+              f"{steps['answer_to_gone_s']:.2f} s after the card step's "
+              f"answer, {steps['job_end_to_gone_s']:.2f} s after the job "
+              f"ended (idle timeout {ED_IDLE_MINUTES * 60:g} s): state API GPU "
+              f"{gpus:g}, card contexts {len(apps)} (before the phase "
+              f"{len(apps_before)}) on {card}", flush=True)
+        check(not alive and gpus == 0 and len(apps) <= len(apps_before),
+              f"[{tag}] after the idle timeout: GPU nodes alive {alive}, "
+              f"GPU {gpus}, card contexts {apps}")
+
+        # 4. a second job resumes the workflow without the card
+        t0 = time.perf_counter()
+        out = _cli(env, "submit", paths["spec.json"], "--", *job_args,
+                   "resume")
+        steps["resume_job_s"] = time.perf_counter() - t0
+        resumed = _tagged(out, "ED")
+        sid2 = out.split("submitted job ")[1].split()[0]
+        status2 = jobs.get_job_status(sid2)
+        _, ever2 = _ed_gpu_nodes(cli)
+        steps["resume_workflow_s"] = resumed["workflow_s"]
+        print(f"[{tag}] job {sid2} (resume): {status2}, the workflow "
+              f"{resumed['status']} with output {resumed['output']}; GPU "
+              f"nodes ever launched {len(ever2)}; resume() "
+              f"{resumed['workflow_s']:.2f} s, `submit` "
+              f"{steps['resume_job_s']:.2f} s on {card}", flush=True)
+        check(status2 == "SUCCEEDED" and resumed["status"] == "SUCCESSFUL"
+              and resumed["output"] == want and resumed["gpu_total"] == 0,
+              f"[{tag}] the resume job {status2}, workflow "
+              f"{resumed['status']}, output {resumed['output']} (want "
+              f"{want}), GPU {resumed['gpu_total']}")
+        check(len(ever2) == 1, f"[{tag}] the resume launched a GPU node: "
+              f"{len(ever2)} GPU nodes in all")
+    finally:
+        if connected:
+            rt.shutdown()
+        t0 = time.perf_counter()
+        if up:
+            # 5. `down`: the head session, its nodes, workers and store
+            down = subprocess.run(
+                [sys.executable, "-m", "ray_tpu_torch", "down",
+                 paths["spec.json"]], env=env, capture_output=True,
+                text=True, timeout=CS_LIMIT_S, cwd=repo)
+            print(f"[{tag}] `python -m ray_tpu_torch down`: "
+                  f"{down.stdout.strip()} (exit {down.returncode})",
+                  flush=True)
+    left, segs, apps = _until_clean(["rtpt-"], apps_before)
+    heads = _session_processes(("ray_tpu_torch.cluster_launcher",))
+    state_file = os.path.join(work, "rtpt-launcher-elastic33.json")
+    steps["down_s"] = time.perf_counter() - t0
+    print(f"[{tag}] after down: session processes {left}, head sessions "
+          f"{heads}, segments {segs}, state file left "
+          f"{os.path.exists(state_file)}, card contexts {len(apps)} (before "
+          f"the phase {len(apps_before)})", flush=True)
+    check(down is not None and down.returncode == 0 and not left
+          and not heads and not segs
+          and not os.path.exists(state_file)
+          and len(apps) <= len(apps_before),
+          f"[{tag}] down left processes {left + heads}, segments {segs}, "
+          f"contexts {apps}")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[{tag}] step seconds "
+          + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
+          + f"; phase seconds {seconds:.1f} on {card}", flush=True)
+    launches = tuple(summary["launches"])
+    return dict(launches=launches, steps=steps, seconds=seconds,
+                digest=summary["digest"],
+                tokens_per_s=summary["tokens_per_s"],
+                cuda_and_weights_s=start["cuda_and_weights_s"])
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -6396,6 +6713,11 @@ def main() -> int:
     t0 = time.perf_counter()
     runs["control-surface"] = phase_control_surface(card)
     print(f"[phase] control surface: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    runs["elastic-durable"] = phase_elastic_durable(card,
+                                                    runs["control-surface"])
+    print(f"[phase] elastic and durable: {time.perf_counter() - t0:.1f} s",
           flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 

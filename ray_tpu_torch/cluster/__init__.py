@@ -21,7 +21,7 @@ segments and the sessions carry the prefix ``rtpt-`` (the JAX package's are
 other's. The accelerator is ``"GPU"``: the node daemon gives each GPU lease
 its own ``CUDA_VISIBLE_DEVICES``.
 Callables go to workers by import path (``core/serialization.py``). Spilling
-keeps a local-directory backend only (``spill.py``). Compiled graphs
+goes to a directory or a storage URI (``spill.py``). Compiled graphs
 (``dag/``) install their resident loops on actor workers
 (``worker_main.rpc_install_cgraph_loop``) and forward cross-host channel
 writes through the reader's daemon (``node_daemon.rpc_channel_write``).

@@ -19,8 +19,10 @@ Where the port differs from the JAX CLI:
   port's ``shmstored``), but only the processes whose command line names
   this temporary directory's sessions, where the JAX ``stop`` kills every
   worker on the host.
-- ``microbenchmark``, ``up``, ``down``, ``attach``, ``exec`` and ``submit``
-  are not ported: each exits non-zero naming ROADMAP.md A.5(d).
+- ``up``, ``down``, ``attach``, ``exec`` and ``submit`` drive
+  ``cluster_launcher.py`` (its spec is JSON, or YAML with PyYAML
+  installed). ``microbenchmark`` is not ported: it exits non-zero naming
+  ROADMAP.md A.5(d).
 """
 
 from __future__ import annotations
@@ -47,12 +49,7 @@ STOP_PATTERNS = ("ray_tpu_torch[.]cluster[.]worker_main .* {tmp}/rtpt-",
                  "ray_tpu_torch/shmstored-[0-9a-f]+ {tmp}/rtpt-")
 
 # Subcommands of the JAX CLI whose modules are still to port.
-DEFERRED = {
-    "microbenchmark": "cluster/microbench.py",
-    "up": "cluster_launcher.py", "down": "cluster_launcher.py",
-    "attach": "cluster_launcher.py", "exec": "cluster_launcher.py",
-    "submit": "cluster_launcher.py and autoscaler/",
-}
+DEFERRED = {"microbenchmark": "cluster/microbench.py"}
 
 
 def _tmp(name: str) -> str:
@@ -309,6 +306,38 @@ def cmd_deferred(args) -> None:
         f"{DEFERRED[args.cmd]}, which ROADMAP.md A.5(d) queues")
 
 
+def cmd_up(args) -> None:
+    """`up spec` (parity: scripts.py:1223 `ray up`)."""
+    from ray_tpu_torch import cluster_launcher
+    cluster_launcher.up(args.config)
+
+
+def cmd_down(args) -> None:
+    from ray_tpu_torch import cluster_launcher
+    cluster_launcher.down(args.config)
+
+
+def cmd_attach(args) -> None:
+    from ray_tpu_torch import cluster_launcher
+    raise SystemExit(cluster_launcher.attach(args.config))
+
+
+def cmd_exec(args) -> None:
+    from ray_tpu_torch import cluster_launcher
+    raise SystemExit(cluster_launcher.exec_cmd(args.config,
+                                               " ".join(args.command)))
+
+
+def cmd_submit(args) -> None:
+    from ray_tpu_torch import cluster_launcher
+    entry = list(args.entrypoint)
+    if entry and entry[0] == "--":
+        entry = entry[1:]
+    cluster_launcher.submit(args.config, " ".join(entry),
+                            working_dir=args.working_dir,
+                            follow=not args.no_wait)
+
+
 def cmd_job(args) -> None:
     """`job submit/status/logs/list/stop` (parity: `ray job ...`,
     dashboard/modules/job/cli.py)."""
@@ -388,6 +417,27 @@ def main(argv=None) -> None:
     p = sub.add_parser("stop", help="stop this host's cluster processes "
                                     "of this temporary directory")
     p.set_defaults(fn=cmd_stop)
+
+    p = sub.add_parser("up", help="bring up a cluster from a spec file")
+    p.add_argument("config")
+    p.set_defaults(fn=cmd_up)
+    p = sub.add_parser("down", help="tear down a launched cluster")
+    p.add_argument("config")
+    p.set_defaults(fn=cmd_down)
+    p = sub.add_parser("attach", help="shell with RAY_TPU_TORCH_ADDRESS set "
+                                      "to the head")
+    p.add_argument("config")
+    p.set_defaults(fn=cmd_attach)
+    p = sub.add_parser("exec", help="run a command against the cluster")
+    p.add_argument("config")
+    p.add_argument("command", nargs=argparse.REMAINDER)
+    p.set_defaults(fn=cmd_exec)
+    p = sub.add_parser("submit", help="submit a job to a launched cluster")
+    p.add_argument("config")
+    p.add_argument("entrypoint", nargs=argparse.REMAINDER)
+    p.add_argument("--working-dir", default=None)
+    p.add_argument("--no-wait", action="store_true")
+    p.set_defaults(fn=cmd_submit)
 
     for name in DEFERRED:
         p = sub.add_parser(name, help=f"not ported yet ({DEFERRED[name]})")

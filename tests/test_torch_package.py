@@ -254,6 +254,9 @@ ENTRY_POINTS = {
     # Not here: serve (deployments, handles, the HTTP proxy). Serve holds no
     # tensor and takes no device; a deployment's model takes its own, and
     # its entry points are the rows above.
+    # Not here: the launcher, the autoscaler, workflows and the pools, for
+    # the same reason: a step, a pool's function or a job's model takes its
+    # own device (their modules are in the import lists below).
 }
 RL_SPEC = {"obs_dim": 4, "num_actions": 2}
 
@@ -405,6 +408,23 @@ def test_import_walk_covers_the_control_surface():
     assert not missing, missing
 
 
+_ELASTIC_MODULES = (
+    "ray_tpu_torch/autoscaler/__init__.py",
+    "ray_tpu_torch/autoscaler/autoscaler.py",
+    "ray_tpu_torch/cluster_launcher.py", "ray_tpu_torch/tune/__init__.py",
+    "ray_tpu_torch/tune/syncer.py", "ray_tpu_torch/workflow/__init__.py",
+    "ray_tpu_torch/workflow/storage.py", "ray_tpu_torch/workflow/execution.py",
+    "ray_tpu_torch/cluster/spill.py", "ray_tpu_torch/util/multiprocessing.py",
+    "ray_tpu_torch/util/joblib_backend.py",
+    "ray_tpu_torch/util/actor_pool.py", "ray_tpu_torch/util/queue.py")
+
+
+def test_import_walk_covers_the_elastic_and_durable_runtime():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _ELASTIC_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -440,7 +460,10 @@ def _fresh(body):
     "ray_tpu_torch.util.collective", "ray_tpu_torch.data",
     "ray_tpu_torch.serve", "ray_tpu_torch.client", "ray_tpu_torch.state",
     "ray_tpu_torch.job_submission", "ray_tpu_torch.dashboard",
-    "ray_tpu_torch.scripts"])
+    "ray_tpu_torch.scripts", "ray_tpu_torch.autoscaler",
+    "ray_tpu_torch.cluster_launcher", "ray_tpu_torch.workflow",
+    "ray_tpu_torch.tune.syncer", "ray_tpu_torch.util.multiprocessing",
+    "ray_tpu_torch.util.joblib_backend"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
@@ -537,6 +560,56 @@ def test_data_runs_with_pyarrow_pandas_and_pil_blocked():
     out = _fresh(_BLOCKED_FORMATS)
     assert "TORCH torch 4 True" in out, out
     assert "PARQUET True" in out, out
+    assert "LOADED []" in out and "BAD []" in out, out
+
+
+_BLOCKED_SPEC_PACKAGES = """
+for name in ("yaml", "joblib", "fsspec"):
+    sys.modules[name] = None        # import raises ImportError
+import json
+import os
+import tempfile
+
+import ray_tpu_torch.autoscaler
+import ray_tpu_torch.cluster_launcher as launcher
+import ray_tpu_torch.tune.syncer as syncer
+import ray_tpu_torch.util
+import ray_tpu_torch.util.joblib_backend as jb
+import ray_tpu_torch.util.multiprocessing
+import ray_tpu_torch.workflow
+from ray_tpu_torch.util import ActorPool, Queue
+d = tempfile.mkdtemp()
+spec = {"cluster_name": "blocked", "provider": {"type": "fake"},
+        "head": {"resources": {"CPU": 1}}}
+with open(os.path.join(d, "c.json"), "w") as f:
+    json.dump(spec, f)
+print("JSON", launcher.load_config(os.path.join(d, "c.json")) == dict(
+    spec, node_types={}))
+with open(os.path.join(d, "c.yaml"), "w") as f:
+    f.write("cluster_name: blocked\\n")
+for name, call in (("YAML", lambda: launcher.load_config(
+        os.path.join(d, "c.yaml"))), ("JOBLIB", jb.register_ray_tpu_torch),
+        ("FSSPEC", lambda: syncer.backend_for("s3://b/k").exists("s3://b/k"))):
+    try:
+        call()
+        print(name, "none")
+    except ImportError as e:
+        print(name, str(e))
+print("LOADED", sorted(m for m in ("yaml", "joblib", "fsspec")
+                       if sys.modules.get(m) is not None))
+"""
+
+
+def test_elastic_runtime_imports_with_yaml_joblib_and_fsspec_blocked():
+    """With PyYAML, joblib and fsspec unimportable, ``autoscaler``,
+    ``cluster_launcher``, ``workflow``, ``tune.syncer`` and ``util`` import;
+    a JSON spec loads, and a YAML spec, the joblib backend and an fsspec URI
+    each raise ``ImportError`` naming the package they need."""
+    out = _fresh(_BLOCKED_SPEC_PACKAGES)
+    assert "JSON True" in out, out
+    assert "YAML " in out and "PyYAML" in out.split("YAML ", 1)[1], out
+    assert "joblib package" in out.split("JOBLIB ", 1)[1], out
+    assert "fsspec package" in out.split("FSSPEC ", 1)[1], out
     assert "LOADED []" in out and "BAD []" in out, out
 
 
