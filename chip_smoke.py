@@ -5,6 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit) on any error:
 
+Before phase 1 the script keeps the bytecode of every import, its own and
+that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
+
 1. Card and build: the card's name and power limit, then the build of every
    CUDA source of the port (nvcc for sm_90a, flash_fwd.cu and flash_bwd.cu
    in parallel), with its seconds and ptxas' register and spill report; for
@@ -139,7 +142,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
 19. Off-policy on the card through the drivers: DQN at tests/test_rl.py:116's
    settings for 3 iterations (finite TD loss, epsilon falling), SAC to its
    gate (>= 100 within 40 iterations), TD3 on Pendulum to its assertion
-   (>= -700 within 60, stopping when met) and DDPG for 3 iterations; each
+   (>= -700 within 60, stopping when met) and DDPG for 2 iterations; each
    with env steps/s, updates/s and the median update ms (3 windows of 20
    updates on minibatches from its own buffer, each ending in a
    synchronize), and a bitwise save -> build() -> restore.
@@ -299,7 +302,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    context.
 29. The data library feeding the trainer (``ray_tpu_torch.data`` on a port
    ``Cluster`` whose head counts the card as ``"GPU": 1``, 4 CPUs and a 2
-   GiB store): at least 16 MiB of seeded synthetic text (words drawn from
+   GiB store): at least 4 MiB of seeded synthetic text (words drawn from
    ``DATA_WORDS``) through ``from_items(parallelism=16)`` ->
    ``tokenize_and_pack(seq_len=2048)`` -> ``random_shuffle(seed=3)``,
    materialized on the cluster's CPU workers, with its documents, bytes,
@@ -374,7 +377,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    generates for 8 seeded prompts of 128 tokens, 32 greedy tokens (cut
    from 256: the phase measures the path, not the decode loop); its
    tokens must equal the driver's direct ``generate`` of the same weights
-   and prompts, with 10 forward launches in that worker; then 200 round
+   and prompts, with 10 forward launches in that worker; then 100 round
    trips of a trivial task through the client. ``job submit --follow``
    runs a script that connects with ``init(address=os.environ[
    "RAY_TPU_TORCH_ADDRESS"])`` and runs the same ``generate`` in a
@@ -411,10 +414,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
    spawn seconds, the flagship's tokens/s in it, the seconds from the card
    step's answer to the node's termination, the resume's seconds and the
    phase's.
+34. The control plane's microbenchmarks: ``python -m
+   ray_tpu_torch.cluster.microbench --quick`` in a subprocess on the card's
+   host, on a port cluster of its own whose head has no card. Every result
+   name of the JAX suite must be there with a finite, positive value, or be
+   one of the port's listed divergences with its reason; each is printed
+   with its family's wall seconds (host numbers). rtcheck over
+   ``ray_tpu_torch/`` (in this process and as ``python -m
+   ray_tpu_torch.devtools.rtcheck``) must find nothing, and ``python -m
+   ray_tpu_torch microbenchmark --address ...`` must exit non-zero. No
+   process, segment or card context may be left.
+35. Tune on the card: a head from ``init()`` counts the card as ``"GPU"``;
+   a ``Tuner`` runs ``tune_flagship_trial`` (the flagship at full width,
+   remat, bf16, the flash kernels, ``make_lm_train_step`` at batch 4 x 2048
+   from seed 35) over 4 learning rates (``grid_search``) under
+   ``AsyncHyperBandScheduler(max_t=6, grace_period=2,
+   reduction_factor=2)``, each trial a task holding ``{"CPU": 1, "GPU":
+   0.5}``, two at a time, one training step a report. All 4 trials must
+   end, ASHA must stop at least one before ``max_t``, each trial's first
+   loss must equal the driver's first step on the same weights and batch
+   within ``TRAIN_LOSS_TOL``, every step must launch the forward 20 times
+   and each backward kernel 10 times in the trial's worker, the best
+   trial's loss must fall, and afterwards ``GPU`` must be back at 1 and no
+   card context left. Prints each trial's losses, seconds to its start and
+   first report, step ms against phase 5's, and peak memory.
 
 No flash kernel runs on phases 13-22 and 31 (the JAX RL stack reaches no
 Pallas kernel): each path's counts must stay 0, as they must for ring,
-Ulysses and the PPO learner in phase 23. Phases 17-33 print their
+Ulysses and the PPO learner in phase 23. Phases 17-35 print their
 seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
@@ -2377,6 +2404,7 @@ APPO_GATE, APPO_ITERS = 150.0, 40
 APPO_RUNS = 3
 A2C_GATE, A2C_ITERS = 40.0, 35
 SAC_GATE, SAC_ITERS = 100.0, 40
+DDPG_ITERS = 2            # cut from 3 (PERF.md §6)
 TD3_GATE, TD3_ITERS = -700.0, 60
 CQL_GATE = 60.0
 
@@ -2695,7 +2723,7 @@ def phase_offpolicy(card):
         out["dqn"]["restored_leaves"] = _bitwise_restore(
             algo, config, lambda a: a.get_state(), "dqn")
         algo.stop()
-        # SAC to its gate; TD3 to its gate, stopping when met; DDPG 3 its
+        # SAC to its gate; TD3 to its gate, stopping when met; DDPG 2 its
         sac_cfg = (SACConfig().environment("CartPole-v1")
                    .rollouts(num_envs_per_worker=8,
                              rollout_fragment_length=32).debugging(seed=0))
@@ -2710,7 +2738,7 @@ def phase_offpolicy(card):
                  lambda a: a.get_state()),
                 ("td3", td3_cfg, TD3_GATE, TD3_ITERS,
                  lambda a: a.get_state()["learner"]),
-                ("ddpg", ddpg_cfg, None, 3,
+                ("ddpg", ddpg_cfg, None, DDPG_ITERS,
                  lambda a: a.get_state()["learner"])):
             algo = config.build()
             t0 = time.perf_counter()
@@ -4289,15 +4317,17 @@ def _pipe_batches(cfg):
 
 
 def _as_partitions(params, cfg, stages=2):
-    """{(part, path): f32 numpy} of a pp_stages=1 tree, cut as the
-    pipeline's ``stages`` partitions hold it."""
+    """{(part, path): f32 tensor on the card} of a pp_stages=1 tree, cut as
+    the pipeline's ``stages`` partitions hold it (kept on the card: the
+    update check's arithmetic over 0.8 B parameters is the card's work, not
+    the host's)."""
     from ray_tpu_torch.models.transformer import transformer_partition_params
     from ray_tpu_torch.train.pipeline import _flatten, _unflatten
     cfg_p = dataclasses.replace(cfg, pp_stages=stages)
     tree = _unflatten(
         (k, v.reshape((stages, -1) + tuple(v.shape[1:]))
          if k.startswith("layers/") else v) for k, v in _flatten(params))
-    return {(p, k): np.array(v.detach().float().cpu()) for p in range(stages)
+    return {(p, k): v.detach().float().clone() for p in range(stages)
             for k, v in _flatten(transformer_partition_params(tree, cfg_p, p))}
 
 
@@ -4325,9 +4355,12 @@ def _reference_losses(cfg, batches):
 
 def _update_error(final, init, delta_ref):
     """(worst leaf, |Δ - Δ_ref| / |Δ_ref| there) of the change from
-    ``init`` to ``final`` against the reference's change."""
-    errs = {k: float(np.linalg.norm((final[k] - init[k]) - d)
-                     / np.linalg.norm(d)) for k, d in delta_ref.items()}
+    ``init`` to ``final`` (numpy from the stages, or card tensors) against
+    the reference's change, in f32 on the card."""
+    errs = {}
+    for k, d in delta_ref.items():
+        f = torch.as_tensor(final[k], dtype=torch.float32, device=d.device)
+        errs[k] = ((f - init[k]) - d).norm().item() / d.norm().item()
     worst = max(errs, key=errs.get)
     return worst, errs[worst]
 
@@ -4409,9 +4442,12 @@ def phase_pipeline(card):
                               tied_embeddings=False)
     batches = _pipe_batches(cfg)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     want, init, delta_ref = _reference_losses(cfg, batches)
     print(f"[pipeline] flagship untied, {transformer_num_params(cfg)} "
-          f"parameters, remat; make_lm_train_step losses {want}", flush=True)
+          f"parameters, remat; make_lm_train_step losses {want} "
+          f"({time.perf_counter() - t0:.1f} s with the partitions' copies)",
+          flush=True)
     free = _shm_free()
     store_bytes = min(8 << 30, int(free * 0.8))
     apps_before = _compute_apps()
@@ -4439,6 +4475,7 @@ def phase_pipeline(card):
     check(all(np.isfinite(losses)) and diffs[0] <= PIPE_LOSS_TOL
           and max(diffs[1:]) <= PIPE_LATER_TOL,
           f"pipeline: losses {losses} against make_lm_train_step {want}")
+    t0 = time.perf_counter()
     weights = spill.pop("weights")
     check(weights.keys() == delta_ref.keys(),
           f"pipeline: the stages hold {sorted(weights)}, the reference "
@@ -4446,10 +4483,12 @@ def phase_pipeline(card):
     worst, param_err = _update_error(weights, init, delta_ref)
     _, control = _update_error(init, init, delta_ref)
     del weights, init, delta_ref
+    torch.cuda.empty_cache()
     print(f"[pipeline] the weights' change over {PIPE_STEPS} steps against "
           f"make_lm_train_step's: |Δ - Δ_ref| / |Δ_ref| at most "
           f"{param_err:.4f} (leaf {worst}; tol {PIPE_PARAM_TOL}); the "
-          f"initial weights in its place read {control:.4f}", flush=True)
+          f"initial weights in its place read {control:.4f} (both on the "
+          f"card, {time.perf_counter() - t0:.1f} s)", flush=True)
     check(param_err <= PIPE_PARAM_TOL,
           f"pipeline: the stages' update of {worst} is {param_err:.4f} off "
           f"make_lm_train_step's (tol {PIPE_PARAM_TOL})")
@@ -4780,7 +4819,8 @@ def phase_trainer_gang(card, resnet_run):
 # phase 29: the data library feeding the trainer's gang
 # ---------------------------------------------------------------------------
 
-DATA_TEXT_BYTES = 16 << 20      # the synthetic corpus, at least
+DATA_TEXT_BYTES = 4 << 20       # the synthetic corpus, at least (cut
+                                # from 16 MiB, PERF.md §6)
 DATA_BLOCKS = 16                # from_items' parallelism
 DATA_BATCH = 8                  # the train cell's batch of 8 x 2048
 IMAGE_BLOCKS = RESNET_GANG_WARM + RESNET_GANG_TIMED   # one batch a step
@@ -5910,7 +5950,8 @@ def phase_rl_cluster(card, drivers_run, cpu_workers_run):
 CS_SEED = 32              # the weights and the prompts
 CS_BATCH, CS_PROMPT = 8, 128
 CS_NEW = 32               # new tokens, cut from phase 3's 256 (PERF.md)
-CS_ROUND_TRIPS = 200      # trivial tasks through the client, one at a time
+CS_ROUND_TRIPS = 100      # trivial tasks through the client, one at a
+                          # time (cut from 200, PERF.md §6)
 CS_LIMIT_S = 600          # any one CLI command, client or job
 
 
@@ -6608,6 +6649,286 @@ def phase_elastic_durable(card, control_run):
                 cuda_and_weights_s=start["cuda_and_weights_s"])
 
 
+# ---------------------------------------------------------------------------
+# phase 34: the control plane's microbenchmarks and rtcheck over the port
+# ---------------------------------------------------------------------------
+
+MB_LIMIT_S = 600          # the quick suite, any one command
+
+
+def phase_microbench(card):
+    """Phase 34: the port's microbenchmark suite (``--quick``) in a
+    subprocess on the card's host, on a cluster of its own with no card;
+    rtcheck over the port; the CLI's ``microbenchmark`` refusing an
+    address. Host numbers: the card only says which machine ran them."""
+    import os
+    import shutil
+    import tempfile
+
+    from ray_tpu_torch.cluster import microbench
+    tag = "microbench"
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    apps_before = _compute_apps()
+    work = tempfile.mkdtemp(prefix="rtpt-mb-")
+    env = dict(os.environ, TMPDIR=work)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.cluster.microbench", "--quick"],
+        env=env, cwd=repo, capture_output=True, text=True,
+        timeout=MB_LIMIT_S)
+    suite_s = time.perf_counter() - t0
+    check(out.returncode == 0 and "{" in out.stdout,
+          f"[{tag}] the suite exited {out.returncode}:\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    doc = json.loads(out.stdout[out.stdout.index("{"):])
+    results, seconds = doc["results"], doc["seconds"]
+    print(f"[{tag}] `python -m ray_tpu_torch.cluster.microbench --quick` "
+          f"{suite_s:.1f} s (host numbers, on the host of {card}): result, "
+          f"value, wall seconds of its family", flush=True)
+    missing, bad = [], []
+    for name in microbench.RESULT_NAMES:
+        if name in microbench.DIVERGENCES:
+            print(f"[{tag}]   {name}: not written "
+                  f"({microbench.DIVERGENCES[name]})", flush=True)
+            continue
+        if name not in results:
+            missing.append(name)
+            continue
+        value = results[name]
+        print(f"[{tag}]   {name} {value} ({seconds[name]:.3f} s)",
+              flush=True)
+        if not (isinstance(value, (int, float)) and math.isfinite(value)
+                and value > 0):
+            bad.append((name, value))
+    extra = sorted(set(results) - set(microbench.RESULT_NAMES))
+    check(not missing and not bad and not extra,
+          f"[{tag}] missing results {missing}, not finite and positive "
+          f"{bad}, names the JAX suite lacks {extra}")
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch.devtools.rtcheck"], cwd=repo,
+        capture_output=True, text=True, timeout=MB_LIMIT_S)
+    scan_s = time.perf_counter() - t0
+    last = cli.stdout.strip().splitlines()[-1] if cli.stdout.strip() else ""
+    print(f"[{tag}] `python -m ray_tpu_torch.devtools.rtcheck` (scans "
+          f"ray_tpu_torch/): exit {cli.returncode} in {scan_s:.2f} s: "
+          f"{last}", flush=True)
+    check(cli.returncode == 0
+          and last == "rtcheck: 0 finding(s) over 1 path(s)",
+          f"[{tag}] rtcheck findings:\n{cli.stdout[-3000:]}"
+          f"{cli.stderr[-2000:]}")
+
+    refused = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", "microbenchmark",
+         "--address", "127.0.0.1:6380"], env=env, cwd=repo,
+        capture_output=True, text=True, timeout=MB_LIMIT_S)
+    print(f"[{tag}] `python -m ray_tpu_torch microbenchmark --address "
+          f"127.0.0.1:6380`: exit {refused.returncode}, "
+          f"{refused.stderr.strip()[-200:]!r}", flush=True)
+    check(refused.returncode != 0 and "drop --address" in refused.stderr,
+          f"[{tag}] the CLI's microbenchmark with an address exited "
+          f"{refused.returncode}: {refused.stderr[-2000:]}")
+    left, segs, apps = _until_clean(["rtpt-"], apps_before)
+    print(f"[{tag}] after the suite: session processes {left}, segments "
+          f"{segs}, card contexts {len(apps)} (before the phase "
+          f"{len(apps_before)})", flush=True)
+    check(not left and not segs and len(apps) <= len(apps_before),
+          f"[{tag}] the suite left processes {left}, segments {segs}, "
+          f"card contexts {apps}")
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"[{tag}] phase seconds {phase_s:.1f} on the host of {card}",
+          flush=True)
+    return dict(results=results, family_seconds=seconds, suite_s=suite_s,
+                rtcheck_s=scan_s, seconds=phase_s)
+
+
+# ---------------------------------------------------------------------------
+# phase 35: Tune trials that train the flagship on the card
+# ---------------------------------------------------------------------------
+
+TUNE_SEED = 35            # the trials' weights and batch, and the driver's
+TUNE_BATCH = 4            # 4 x 2048 tokens a step: two trials share the card
+# Launched in this order, two at a time. The last is far too small to
+# move the loss in one step as the others do (on the H100 at 700 W, 1e-5
+# read 10.2591 at its second step, against 10.0639, 9.3230 and 8.2405 for
+# the other three), so it is the worst of rung 2 whatever the order in
+# which the trials report, and ASHA stops it there. Whether ASHA also stops
+# 1e-3 at rung 2 depends on whether 3e-4 reported its second step first.
+TUNE_LRS = (1e-3, 3e-4, 1e-4, 1e-5)
+TUNE_MAX_T = 6
+TUNE_PER_STEP = (20, 10, 10, 10)   # forward (+ remat), dK/dV, dQ, Δ
+
+
+def _tune_tokens(cfg):
+    return np.random.default_rng(TUNE_SEED).integers(
+        0, cfg.vocab_size, (TUNE_BATCH, cfg.max_seq))
+
+
+def tune_flagship_trial(config):
+    """A Tune trial: the flagship (phase 5's configuration) trained from
+    ``TUNE_SEED``'s weights on the card this trial's lease gave it, one
+    step a report. Each report carries the loss, this worker's flash
+    launches of the step, and the history so far (a ResultGrid keeps a
+    trial's last report)."""
+    import os
+
+    from ray_tpu_torch.air import session
+    from ray_tpu_torch.train import make_lm_train_step
+    from ray_tpu_torch.train.torch_utils import get_device
+    t_start = time.time()
+    cfg = flagship_cfg(remat=True)
+    dev = get_device()
+    init_fn, step_fn, place = make_lm_train_step(
+        cfg, learning_rate=config["lr"], device=dev)
+    torch.cuda.init()
+    t_cuda = time.time()
+    state = init_fn(torch.Generator(device=dev).manual_seed(TUNE_SEED))
+    data = place({"tokens": _tune_tokens(cfg)})
+    torch.cuda.synchronize()
+    t_ready = time.time()
+    torch.cuda.reset_peak_memory_stats()
+    losses, launches, step_ms = [], [], []
+    where = (os.getpid(), os.environ.get("CUDA_VISIBLE_DEVICES"), str(dev))
+    t_first = None
+    try:
+        for _ in range(10 * TUNE_MAX_T):   # ASHA ends it by max_t
+            _reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, data)
+            losses.append(metrics["loss"].item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(_launch_counts())
+            t_first = t_first or time.time()
+            session.report({
+                "loss": losses[-1], "losses": list(losses),
+                "launches": list(launches), "step_ms": list(step_ms),
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "where": where, "t_start": t_start, "t_cuda": t_cuda,
+                "t_ready": t_ready, "t_first": t_first})
+    finally:
+        del state, data
+        torch.cuda.empty_cache()
+
+
+def phase_tune(card, train_run):
+    """Phase 35: a Tuner on a port head whose ``"GPU"`` is the card runs
+    ``tune_flagship_trial`` over 4 learning rates, two half-card trials at
+    a time under ASHA; each trial's first loss is held to the driver's
+    first step on the same weights and batch."""
+    import shutil
+    import tempfile
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.air.config import RunConfig
+    tag = "tune"
+    t_phase = time.perf_counter()
+    cfg = flagship_cfg(remat=True)
+    tokens = _tune_tokens(cfg)
+    t0 = time.perf_counter()
+    driver_loss = _first_step(cfg, tokens, TUNE_SEED)[0]
+    torch.cuda.empty_cache()
+    print(f"[{tag}] the driver's first step at batch {TUNE_BATCH} x "
+          f"{cfg.max_seq}, seed {TUNE_SEED}: loss {driver_loss:.6f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    apps_before = _compute_apps()
+    work = tempfile.mkdtemp(prefix="rtpt-tune-")
+    head = rt.init(num_cpus=4)
+    prefix = head._owned_daemon.store_prefix
+    try:
+        res = rt.cluster_resources()
+        check(res.get("GPU") == 1.0,
+              f"[{tag}] the head counts {res.get('GPU')} GPUs, want 1")
+        sched = tune.AsyncHyperBandScheduler(
+            metric="loss", mode="min", max_t=TUNE_MAX_T, grace_period=2,
+            reduction_factor=2)
+        t_fit = time.time()
+        grid = tune.Tuner(
+            tune_flagship_trial,
+            param_space={"lr": tune.grid_search(list(TUNE_LRS))},
+            tune_config=tune.TuneConfig(
+                metric="loss", mode="min", scheduler=sched,
+                max_concurrent_trials=2,
+                resources_per_trial={"CPU": 1, "GPU": 0.5}),
+            run_config=RunConfig(storage_path=work, name="flagship"),
+        ).fit()
+        fit_s = time.time() - t_fit
+        deadline = time.monotonic() + 30
+        gpu = rt.available_resources().get("GPU", 0.0)
+        while gpu != 1.0 and time.monotonic() < deadline:
+            time.sleep(0.2)
+            gpu = rt.available_resources().get("GPU", 0.0)
+        print(f"[{tag}] after fit(): GPU {gpu:g} / "
+              f"{rt.cluster_resources().get('GPU', 0.0):g} available",
+              flush=True)
+        check(gpu == 1.0, f"[{tag}] GPU {gpu} available after fit(), want 1")
+    finally:
+        rt.shutdown()
+    left, segs, apps = _until_clean([prefix], apps_before)
+    rows = sorted(grid, key=lambda r: r.config["lr"], reverse=True)
+    check(len(rows) == len(TUNE_LRS) and not grid.errors,
+          f"[{tag}] {len(rows)} trials, errors {grid.errors}")
+    total = [0, 0, 0, 0]
+    stopped, firsts = 0, []
+    for r in rows:
+        m = r.metrics
+        n = len(m["losses"])
+        stopped += n < TUNE_MAX_T
+        firsts.append(m["losses"][0])
+        for launch in m["launches"]:
+            total = [a + b for a, b in zip(total, launch)]
+        timed = m["step_ms"][1:] or m["step_ms"]
+        print(f"[{tag}] lr {r.config['lr']:g}: {n} steps "
+              f"({'stopped by ASHA' if n < TUNE_MAX_T else 'to max_t'}), "
+              f"losses {[round(x, 4) for x in m['losses']]}; worker "
+              f"(pid, CUDA_VISIBLE_DEVICES, device) {m['where']}: trial "
+              f"start {m['t_start'] - t_fit:.2f} s after fit() began, "
+              f"the step built and CUDA up {m['t_cuda'] - m['t_start']:.2f}"
+              f" s later, weights on the card after "
+              f"{m['t_ready'] - m['t_cuda']:.2f} s more, first report "
+              f"{m['t_first'] - t_fit:.2f} s after fit() began; step ms "
+              f"{[round(x, 1) for x in m['step_ms']]} "
+              f"(median after the first {np.median(timed):.1f}, phase 5 "
+              f"{train_run['step_ms']:.1f} at batch 8 alone on the card); "
+              f"peak memory {m['peak_gb']:.2f} GB", flush=True)
+        check(all(tuple(x) == TUNE_PER_STEP for x in m["launches"]),
+              f"[{tag}] lr {r.config['lr']}: launches a step "
+              f"{m['launches']}, want {TUNE_PER_STEP} (fwd, dkv, dq, delta)")
+    diffs = [abs(f - driver_loss) for f in firsts]
+    best = grid.get_best_result()
+    print(f"[{tag}] {len(rows)} trials in {fit_s:.1f} s; stopped by ASHA "
+          f"before max_t {TUNE_MAX_T}: {stopped}; first losses {firsts} "
+          f"against the driver's {driver_loss:.6f} (diffs "
+          f"{[f'{d:.2e}' for d in diffs]}, tol {TRAIN_LOSS_TOL}); best lr "
+          f"{best.config['lr']:g}, losses {best.metrics['losses']}; flash "
+          f"launches in the trial workers {tuple(total)}; after shutdown: "
+          f"session processes {left}, segments {segs}, card contexts "
+          f"{len(apps)} (before the phase {len(apps_before)}) on {card}",
+          flush=True)
+    check(stopped >= 1, f"[{tag}] ASHA stopped no trial before max_t")
+    check(max(diffs) <= TRAIN_LOSS_TOL,
+          f"[{tag}] first losses {firsts} against the driver's "
+          f"{driver_loss} (tol {TRAIN_LOSS_TOL})")
+    check(best.metrics["losses"][-1] < best.metrics["losses"][0],
+          f"[{tag}] the best trial's loss did not fall: "
+          f"{best.metrics['losses']}")
+    check(not left and not segs and len(apps) <= len(apps_before),
+          f"[{tag}] left processes {left}, segments {segs}, card contexts "
+          f"{apps}")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"[{tag}] phase seconds {seconds:.1f}", flush=True)
+    return dict(launches=tuple(total), fit_s=fit_s, stopped=stopped,
+                driver_loss=driver_loss, first_losses=firsts,
+                trials={r.config["lr"]: {k: r.metrics[k] for k in (
+                    "losses", "step_ms", "peak_gb", "where", "t_start",
+                    "t_cuda", "t_ready", "t_first")} for r in rows},
+                t_fit=t_fit, seconds=seconds)
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -6615,11 +6936,35 @@ def _paths(runs, part):
             for path, r in runs.items()}
 
 
+def _keep_bytecode():
+    """Keep the bytecode of what this process and every process it starts
+    imports under ``build/pycache``. Where the interpreter is told to write
+    none (``PYTHONDONTWRITEBYTECODE``) and the installed packages ship none,
+    every process compiles torch's sources again when it imports torch,
+    and torch._dynamo's when it first makes a torch.optim optimizer:
+    seconds each, paid by every worker, head and CLI command the phases
+    start. The first import of a module writes its bytecode, the rest read
+    it. Returns (the cache's path, whether writing had been off)."""
+    import os
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "pycache")
+    os.makedirs(path, exist_ok=True)
+    was_off = sys.dont_write_bytecode
+    os.environ["PYTHONPYCACHEPREFIX"] = path
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = path
+    sys.dont_write_bytecode = False
+    return path, was_off
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    cache, was_off = _keep_bytecode()
+    print(f"[setup] bytecode of every import kept under {cache} (writing it "
+          f"had been off: {was_off})", flush=True)
     card, build = phase_card_and_build()
     results = phase_kernel_checks()
     bwd = phase_backward_checks()
@@ -6719,6 +7064,12 @@ def main() -> int:
                                                     runs["control-surface"])
     print(f"[phase] elastic and durable: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    t0 = time.perf_counter()
+    micro = phase_microbench(card)
+    print(f"[phase] microbench: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    runs["tune"] = phase_tune(card, runs["train"])
+    print(f"[phase] tune: {time.perf_counter() - t0:.1f} s", flush=True)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):
@@ -6815,6 +7166,7 @@ def main() -> int:
             })
         kernels.append(row)
     print(json.dumps({"paths": runs}))
+    print(json.dumps({"microbench": micro}))
     print(json.dumps({"kernels": kernels}))
     from ray_tpu_torch import device_name
     # the run used one card, whatever else the machine holds

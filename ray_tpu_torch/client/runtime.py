@@ -99,7 +99,7 @@ class ClientRuntime:
         try:
             resp = self._client.call("cp_connect",
                                      meta={"namespace": namespace})
-        except BaseException:
+        except BaseException:  # noqa: BLE001 - close the client then re-raise
             self._client.close()
             raise
         if not resp.get("ok"):

@@ -29,6 +29,7 @@ from ray_tpu_torch.core.exceptions import GetTimeoutError, ObjectLostError
 from ray_tpu_torch.core.ids import ObjectID, store_key
 from ray_tpu_torch.util import events as _events
 from ray_tpu_torch.util import lockcheck
+from ray_tpu_torch.util.broadcast_schedule import broadcast_rounds
 
 # Batch-get miss marker (a stored value may legitimately be None).
 MISS = object()
@@ -1059,7 +1060,6 @@ class ObjectPlane:
         of member node_ids.
         """
         from ray_tpu_torch import config
-        from ray_tpu_torch.parallel import collectives
 
         key = self._key(oid)
         members = [m for m in members if m["node_id"] != self.node_id]
@@ -1097,7 +1097,7 @@ class ObjectPlane:
         t0 = time.monotonic()
         reached: Dict[int, bool] = {0: True}
         fallback: List[int] = []
-        for legs in collectives.broadcast_rounds(len(ranks), fanout=fanout):
+        for legs in broadcast_rounds(len(ranks), fanout=fanout):
             threads = []
             outcomes: Dict[int, bool] = {}
 

@@ -195,7 +195,7 @@ def _main_global(path: str, qualname: str):
         sys.modules[_MAIN_ALIAS] = mod
         try:
             spec.loader.exec_module(mod)
-        except BaseException:
+        except BaseException:  # noqa: BLE001 - unregister then re-raise
             sys.modules.pop(_MAIN_ALIAS, None)
             raise
     return _unwrap(_getattr_path(mod, qualname))

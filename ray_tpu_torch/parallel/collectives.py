@@ -27,6 +27,9 @@ from typing import Sequence, Union
 import torch
 import torch.distributed as dist
 
+from ray_tpu_torch.util.broadcast_schedule import (  # noqa: F401 - re-export
+    broadcast_rounds)
+
 AxisName = Union[str, Sequence[str]]
 
 _ENV: contextvars.ContextVar = contextvars.ContextVar("axis_env",
@@ -234,30 +237,3 @@ def broadcast_from(x, axis: str, *, root: int = 0):
     """Every member gets root's value (select-and-psum, as in JAX)."""
     masked = x if axis_index(axis) == root else torch.zeros_like(x)
     return allreduce_sum(masked, axis)
-
-
-def broadcast_rounds(n: int, *, fanout: int = 2, root: int = 0):
-    """Host-level broadcast schedule: rounds of (src, dst) legs spreading
-    one copy from ``root`` to all ``n`` members, each holder re-sending to
-    up to ``fanout`` new members per round (binomial tree at fanout=2, so
-    ceil(log2 n) rounds). Pure schedule; legs inside a round are
-    independent."""
-    if n <= 0:
-        return []
-    if fanout < 1:
-        fanout = 1
-    have = [root % n]
-    pending = [i for i in range(n) if i != root % n]
-    rounds = []
-    while pending:
-        legs = []
-        senders = list(have)
-        for src in senders:
-            for _ in range(fanout):
-                if not pending:
-                    break
-                dst = pending.pop(0)
-                legs.append((src, dst))
-                have.append(dst)
-        rounds.append(legs)
-    return rounds

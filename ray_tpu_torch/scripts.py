@@ -21,8 +21,11 @@ Where the port differs from the JAX CLI:
   worker on the host.
 - ``up``, ``down``, ``attach``, ``exec`` and ``submit`` drive
   ``cluster_launcher.py`` (its spec is JSON, or YAML with PyYAML
-  installed). ``microbenchmark`` is not ported: it exits non-zero naming
-  ROADMAP.md A.5(d).
+  installed).
+- ``microbenchmark`` runs ``cluster/microbench.py``'s suite on a fresh
+  local cluster, as the JAX CLI does; given ``--address`` it exits
+  non-zero (``run_microbenchmark`` refuses an address), where the JAX CLI
+  prints a note and drops it. Every subcommand of the JAX CLI is ported.
 """
 
 from __future__ import annotations
@@ -47,9 +50,6 @@ HEAD_SESSION = "rtpt-head-"     # + port: a head on a fixed port's session
 STOP_PATTERNS = ("ray_tpu_torch[.]cluster[.]worker_main .* {tmp}/rtpt-",
                  "ray_tpu_torch[.]cluster[.]worker_zygote .* {tmp}/rtpt-",
                  "ray_tpu_torch/shmstored-[0-9a-f]+ {tmp}/rtpt-")
-
-# Subcommands of the JAX CLI whose modules are still to port.
-DEFERRED = {"microbenchmark": "cluster/microbench.py"}
 
 
 def _tmp(name: str) -> str:
@@ -300,10 +300,13 @@ def cmd_fault_sites(args) -> None:
           f"ray_tpu_torch.cluster.fault_plane.load_plan(rules))")
 
 
-def cmd_deferred(args) -> None:
-    raise SystemExit(
-        f"python -m ray_tpu_torch {args.cmd}: not ported yet; it needs "
-        f"{DEFERRED[args.cmd]}, which ROADMAP.md A.5(d) queues")
+def cmd_microbenchmark(args) -> None:
+    """`microbenchmark` (parity: scripts.py `ray microbenchmark`): the
+    suite owns its cluster, so an ``--address`` is refused."""
+    from ray_tpu_torch.cluster.microbench import run_microbenchmark
+    rc = run_microbenchmark(getattr(args, "address", None))
+    if rc:
+        raise SystemExit(rc)
 
 
 def cmd_up(args) -> None:
@@ -439,11 +442,6 @@ def main(argv=None) -> None:
     p.add_argument("--no-wait", action="store_true")
     p.set_defaults(fn=cmd_submit)
 
-    for name in DEFERRED:
-        p = sub.add_parser(name, help=f"not ported yet ({DEFERRED[name]})")
-        p.add_argument("rest", nargs=argparse.REMAINDER)
-        p.set_defaults(fn=cmd_deferred)
-
     p = sub.add_parser("client-server",
                        help="run a client proxy for client:// drivers")
     p.add_argument("--address", default=None)
@@ -453,7 +451,8 @@ def main(argv=None) -> None:
 
     for name, fn in (("status", cmd_status), ("summary", cmd_summary),
                      ("timeline", cmd_timeline), ("metrics", cmd_metrics),
-                     ("debug-state", cmd_debug_state)):
+                     ("debug-state", cmd_debug_state),
+                     ("microbenchmark", cmd_microbenchmark)):
         p = sub.add_parser(name)
         p.add_argument("--address", default=None)
         if name == "timeline":

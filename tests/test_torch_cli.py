@@ -6,8 +6,9 @@ ported from ``ray_tpu/scripts.py``, which has no test of its own).
   with a ``client://`` driver, and ``stop``, which leaves no process of
   that head, no store segment and no address file. A sweep while the head
   lives takes none of its files.
-- The subcommands whose modules are still to port exit non-zero naming
-  ROADMAP.md A.5(d).
+- ``microbenchmark`` refuses ``--address`` (exits non-zero) and, without
+  one, reaches ``cluster/microbench.py``'s ``main`` (monkeypatched here,
+  so no suite runs).
 - ``stop``'s patterns match the port's processes of its own temporary
   directory only: no JAX process, and no port process of another
   directory; the JAX ``stop``'s patterns match no port process.
@@ -181,12 +182,31 @@ def test_head_status_list_job_client_and_stop(tmp_path, cli_tmp):
     assert [f for f in os.listdir("/dev/shm") if f.startswith(prefix)] == []
 
 
-@pytest.mark.parametrize("name", sorted(scripts.DEFERRED))
-def test_deferred_subcommands_exit_naming_the_roadmap(name):
+def test_microbenchmark_subcommand_refuses_an_address(monkeypatch):
+    """The suite owns its cluster: ``--address`` exits non-zero before
+    anything runs (the JAX CLI prints a note and drops it)."""
+    from ray_tpu_torch.cluster import microbench
+    monkeypatch.setattr(microbench, "main", lambda argv=None: pytest.fail(
+        "the suite ran although an address was given"))
     with pytest.raises(SystemExit) as e:
-        scripts.main([name, "cluster.yaml"])
-    assert "A.5(d)" in str(e.value.code)
-    assert scripts.DEFERRED[name] in str(e.value.code)
+        scripts.main(["microbenchmark", "--address", "127.0.0.1:6380"])
+    assert e.value.code and "drop --address" in str(e.value.code)
+
+
+def test_microbenchmark_subcommand_runs_the_suite(monkeypatch):
+    """Without an address the subcommand calls the suite's ``main`` with
+    no arguments, as ``ray_tpu/scripts.py:214-220`` does, and a failing
+    suite's code becomes the CLI's exit code."""
+    from ray_tpu_torch.cluster import microbench
+    calls = []
+    monkeypatch.setattr(microbench, "main",
+                        lambda argv=None: calls.append(argv) or 0)
+    scripts.main(["microbenchmark"])
+    assert calls == [[]]
+    monkeypatch.setattr(microbench, "main", lambda argv=None: 3)
+    with pytest.raises(SystemExit) as e:
+        scripts.main(["microbenchmark"])
+    assert e.value.code == 3
 
 
 def _jax_stop_patterns():

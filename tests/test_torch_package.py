@@ -39,6 +39,7 @@ REPO = Path(__file__).resolve().parents[1]
 def _port_files():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
+    files.append(REPO / "chip_import_probe.py")
     return files
 
 
@@ -425,6 +426,25 @@ def test_import_walk_covers_the_elastic_and_durable_runtime():
     assert not missing, missing
 
 
+_TOOLS_AND_TUNE_MODULES = (
+    "ray_tpu_torch/devtools/__init__.py",
+    "ray_tpu_torch/devtools/rtcheck/__init__.py",
+    "ray_tpu_torch/devtools/rtcheck/__main__.py",
+    "ray_tpu_torch/devtools/rtcheck/core.py",
+    "ray_tpu_torch/devtools/rtcheck/checkers.py",
+    "ray_tpu_torch/cluster/microbench.py",
+    "ray_tpu_torch/train/compiled_pipeline.py",
+    "ray_tpu_torch/util/broadcast_schedule.py",
+    "ray_tpu_torch/tune/search_space.py", "ray_tpu_torch/tune/search.py",
+    "ray_tpu_torch/tune/schedulers.py", "ray_tpu_torch/tune/tuner.py")
+
+
+def test_import_walk_covers_the_tools_and_tune():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _TOOLS_AND_TUNE_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -463,7 +483,10 @@ def _fresh(body):
     "ray_tpu_torch.scripts", "ray_tpu_torch.autoscaler",
     "ray_tpu_torch.cluster_launcher", "ray_tpu_torch.workflow",
     "ray_tpu_torch.tune.syncer", "ray_tpu_torch.util.multiprocessing",
-    "ray_tpu_torch.util.joblib_backend"])
+    "ray_tpu_torch.util.joblib_backend", "ray_tpu_torch.devtools.rtcheck",
+    "ray_tpu_torch.devtools.rtcheck.checkers",
+    "ray_tpu_torch.cluster.microbench", "ray_tpu_torch.tune",
+    "ray_tpu_torch.tune.tuner"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")
@@ -475,6 +498,30 @@ def test_train_worker_class_loads_without_torch():
     actor class's module and the air session load none."""
     out = _fresh("import ray_tpu_torch.train.worker_group\n"
                  "import ray_tpu_torch.air.session\n"
+                 "print('TORCH', 'torch' in sys.modules)")
+    assert "TORCH False" in out and "BAD []" in out, out
+
+
+def test_compiled_pipeline_module_loads_without_torch():
+    """``SleepStage`` workers and a ``CompiledPipeline`` driver (the
+    microbenchmarks' pipeline families) load no torch: both live in a
+    module of their own, which ``train.pipeline`` re-exports."""
+    out = _fresh("import ray_tpu_torch.train.compiled_pipeline as p\n"
+                 "p.SleepStage(0.0, 0.0).pipe_forward(0, 1)\n"
+                 "import ray_tpu_torch.cluster.microbench\n"
+                 "print('TORCH', 'torch' in sys.modules)")
+    assert "TORCH False" in out and "BAD []" in out, out
+
+
+def test_object_plane_broadcast_schedule_loads_no_torch():
+    """The object plane's broadcast tree takes its schedule from a module
+    that imports no torch (``collectives`` re-exports it), so a
+    control-plane process that broadcasts an object loads none."""
+    out = _fresh("from ray_tpu_torch.cluster import object_plane\n"
+                 "from ray_tpu_torch.util.broadcast_schedule import "
+                 "broadcast_rounds\n"
+                 "assert object_plane.broadcast_rounds is broadcast_rounds\n"
+                 "print(broadcast_rounds(5))\n"
                  "print('TORCH', 'torch' in sys.modules)")
     assert "TORCH False" in out and "BAD []" in out, out
 
