@@ -143,7 +143,7 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    settings for 3 iterations (finite TD loss, epsilon falling), SAC to its
    gate (>= 100 within 40 iterations), TD3 on Pendulum to its assertion
    (>= -700 within 60, stopping when met) and DDPG for 2 iterations; each
-   with env steps/s, updates/s and the median update ms (3 windows of 20
+   with env steps/s, updates/s and the median update ms (2 windows of 20
    updates on minibatches from its own buffer, each ending in a
    synchronize), and a bitwise save -> build() -> restore.
 20. Offline on the card: ``collect_experiences`` with the JAX tests'
@@ -210,8 +210,9 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    cut from 256) and records each batch's prompts in order; started by
    ``serve.run(..., http_host="127.0.0.1")`` on an ephemeral port. 8
    client threads each POST one seeded prompt at once, for one warm round
-   and then 2 timed rounds. Every response must be 200; each response's tokens must equal
-   those of a direct ``generate`` of the batch the deployment formed, in
+   and then 1 timed round. Every response must be 200; each response's
+   tokens must equal those of a direct ``generate`` of the batch the
+   deployment formed, in
    its row order; the forward kernel must launch n_layers times per
    ``generate`` call the deployment made (and no backward kernel); after
    ``serve.shutdown()`` no proxy may be open and no replica alive, and
@@ -284,16 +285,18 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
 28. The trainer on the card (``train.TorchTrainer`` on a port ``Cluster``
    whose head counts the card as ``"GPU": 1``): first the driver runs
    phase 5's program (the flagship, remat, tied, AdamW at batch 8 x 2048,
-   weights and tokens from seed 3) for 1 settling and 3 timed steps and
+   weights and tokens from seed 3) for 1 settling and 2 timed steps and
    frees it. Then ``TorchTrainer(gang_loop, scaling_config=
-   ScalingConfig(num_workers=1))``, ``use_gpu`` left at its default (the
-   card): a one-rank NCCL gang whose worker process leases the card. The
+   ScalingConfig(topology=<the head's NVLink domain type>))``: one rank a
+   card of the domain (one here), gang-placed with strategy ``SLICE``,
+   whose placement group must name the head's domain; a one-rank NCCL
+   gang whose worker process leases the card. The
    loop checks its NCCL group of one and its device (``cuda:0`` of one
    visible card), runs the same program on ``torch_utils.get_device()``
    with a ``session.report`` each step, the flash launches counted in the
-   worker from 0 before the timed steps (they must be (60, 30, 30, 30)),
+   worker from 0 before the timed steps (they must be (40, 20, 20, 20)),
    and its peak card memory; then ResNet-50 at phase 11's point (3 warm
-   and 5 timed steps, no flash launch). The gang's losses must be within
+   and 3 timed steps, no flash launch). The gang's losses must be within
    ``GANG_LOSS_TOL`` of the driver's and its first ResNet loss within
    ``RESNET_FIRST_LOSS_TOL`` of phase 11's. Prints step ms, tokens/s, MFU,
    the ratio to the driver's step ms, the seconds from ``fit()`` to the
@@ -302,21 +305,21 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    context.
 29. The data library feeding the trainer (``ray_tpu_torch.data`` on a port
    ``Cluster`` whose head counts the card as ``"GPU": 1``, 4 CPUs and a 2
-   GiB store): at least 4 MiB of seeded synthetic text (words drawn from
+   GiB store): at least 2 MiB of seeded synthetic text (words drawn from
    ``DATA_WORDS``) through ``from_items(parallelism=16)`` ->
    ``tokenize_and_pack(seq_len=2048)`` -> ``random_shuffle(seed=3)``,
    materialized on the cluster's CPU workers, with its documents, bytes,
-   rows, seconds and tokens/s; and 8 blocks of 256 seeded uint8 images at
-   224² (``range(...).map_batches(data_images)``, 308 MB). Then
+   rows, seconds and tokens/s; and 6 blocks of 256 seeded uint8 images at
+   224² (``range(...).map_batches(data_images)``, 231 MB). Then
    ``TorchTrainer(data_gang_loop, datasets={"train": ..., "images": ...},
    scaling_config=ScalingConfig(num_workers=1))``: the worker trains the
    flagship at phase 28's cell from its shard's batches
    (``iter_torch_batches(batch_size=8, drop_last=True)``, each copied to
-   the card), 1 settling and 3 timed steps that must launch (60, 30, 30,
-   30), with the wait for each batch, then drains the rest of its shard
+   the card), 1 settling and 2 timed steps that must launch (40, 20, 20,
+   20), with the wait for each batch, then drains the rest of its shard
    through the copy to the card (rows/s, MB/s); then ResNet-50 from the
    image shard (each batch copied to the card and converted there), 3 warm
-   and 5 timed steps. The losses must be within ``GANG_LOSS_TOL`` of the
+   and 3 timed steps. The losses must be within ``GANG_LOSS_TOL`` of the
    driver's steps on the same rows and the first ResNet loss within
    ``RESNET_FIRST_LOSS_TOL``. Prints step ms and images/s beside phase
    28's, tokens/s, MFU and the seconds from ``fit()`` to the first report.
@@ -328,7 +331,7 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    proxy and every replica are worker processes. ``ServeLM``, a
    module-level deployment with ``ray_actor_options={"num_gpus": 1}``,
    draws the flagship's weights from seed 24 on its replica's card and
-   serves phase 24's traffic (8 clients x 3 rounds, 1 warm, seed-24
+   serves phase 24's traffic (8 clients x 2 rounds, 1 warm, seed-24
    prompts of 128 tokens, ``HTTP_NEW`` = 64 new tokens) behind the same
    ``@serve.batch``. Every status must be 200, each prompt in exactly one batch, every
    answer equal to the driver's direct ``generate`` of its batch with the
@@ -340,7 +343,7 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    ``serve.run(..., compile=True)``: the handle's calls must ride the
    replica's compiled graph and answer as the classic handle does, and
    after ``teardown_compiled()`` the classic path answers the same; a
-   module-level CPU ``SmokeDoubler``'s 200 round trips through the classic
+   module-level CPU ``SmokeDoubler``'s 100 round trips through the classic
    and the compiled handle, in turns, beside phase 26's ratio. Then the
    replica calls ``os._exit(1)``: the controller sees it DEAD through the
    conductor and starts a new GPU replica; the seconds from the kill to
@@ -359,7 +362,7 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    worker process, the same gate, 2 card contexts while it trains (the
    driver's and the learner's); then ``save()`` and a fresh build with the
    learner in the driver ``restore`` s it: 12 of 12 leaves bitwise equal.
-   (c) IMPALA and APPO, 3 iterations each (env steps/s, the ``rt.wait``
+   (c) IMPALA and APPO, 2 iterations each (env steps/s, the ``rt.wait``
    share); then a fresh build stopped at once, its first samples in flight
    (``SlowCartPole``, 100 ms a step): both refs must fail as dead-actor
    errors and no actor stay ALIVE. (d) DQN, TD3 and ES: one ``train()``
@@ -369,7 +372,10 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    ``client://``, jobs, the state API, the dashboard). ``init()`` with no
    address must start a head in this process whose
    ``cluster_resources()["GPU"]`` is 1.0 and whose node
-   ``state.list_nodes()`` shows; ``shutdown()`` leaves no process or
+   ``state.list_nodes()`` shows; its daemon's NVLink domain
+   (``detect_domain``) must name the card's generation and count the
+   visible cards, and the conductor's ``get_slices()`` must hold it,
+   complete, with the head as its one host; ``shutdown()`` leaves no process or
    segment. Then ``python -m ray_tpu_torch start --head --port 0`` with a
    ``TMPDIR`` of its own, ``client-server``, and a driver script that
    connects with ``init("client://...")``: a ``num_gpus=1`` actor
@@ -378,10 +384,15 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    from 256: the phase measures the path, not the decode loop); its
    tokens must equal the driver's direct ``generate`` of the same weights
    and prompts, with 10 forward launches in that worker; then 100 round
-   trips of a trivial task through the client. ``job submit --follow``
-   runs a script that connects with ``init(address=os.environ[
-   "RAY_TPU_TORCH_ADDRESS"])`` and runs the same ``generate`` in a
-   ``num_gpus=1`` task (``control_generate_task``): the job must end
+   trips of a trivial task through the client. Before the actor the client
+   sends a ``num_gpus=1`` task named by ``import_path``
+   (``chip_smoke:control_generate_task``) on the proxy's wire, with no
+   function blob, as a client in another language does: its tokens must
+   equal the driver's row for row, with 10 forward launches in its worker,
+   which goes back to the pool for the actor to take (printed). ``job
+   submit --follow`` runs a script that connects with
+   ``init(address=os.environ["RAY_TPU_TORCH_ADDRESS"])`` and runs the
+   same ``generate`` in a ``num_gpus=1`` task (``control_generate_task``): the job must end
    ``SUCCEEDED`` with the driver's token digest in its logs and 10 launches
    in its worker. ``state.list_actors()`` must show the client's actor
    DEAD after its kill, ``list_jobs()`` the job, the dashboard's
@@ -439,10 +450,20 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
    card context left. Prints each trial's losses, seconds to its start and
    first report, step ms against phase 5's, and peak memory.
 
+36. The port's examples on the card:
+   ``examples_torch/02_train_lm_multichip.py`` (a one-rank NCCL gang on a
+   one-card mesh, on the in-process runtime),
+   ``03_serve_lm.py --local-mode`` (the LM behind a replica thread over
+   HTTP) and ``05_rl_cartpole.py --local-mode`` (PPO, the learner on the
+   card): ``02``'s 5 losses finite
+   and falling and launches (20, 10, 10, 10), ``03``'s 16 tokens and
+   launches (2, 0, 0, 0), ``05``'s 5 iterations of 1,024 env steps and no
+   launch; no card context left. They run through ``runpy`` in this
+   process, which has paid ``import torch`` and torch._dynamo's already.
+
 No flash kernel runs on phases 13-22 and 31 (the JAX RL stack reaches no
 Pallas kernel): each path's counts must stay 0, as they must for ring,
-Ulysses and the PPO learner in phase 23. Phases 17-35 print their
-seconds.
+Ulysses and the PPO learner in phase 23. Every phase prints its seconds.
 
 The line before the last is a JSON object with one entry per kernel; the last
 line is ``{"ok": true, "device": {...}}`` with the one card the run used.
@@ -2055,7 +2076,7 @@ def _hand_over(run, n):
                 update_ms=1e3 * float(np.median(run["update_s"][:n])))
 
 
-def _sampling_rounds(rt, n=6):     # cut from 12 (PERF.md §6)
+def _sampling_rounds(rt, n=3):     # cut from 12, then 6 (PERF.md §6)
     """Median ms of one sampling round of phase 13's two workers at fixed
     weights: in turn in this thread, and as two actors of the runtime
     sampling at once (as ``WorkerSet.sample`` does)."""
@@ -2190,7 +2211,7 @@ def phase_ppo_drivers(card, hand):
               f"train() at iteration {fresh.iteration}", flush=True)
         out["sampling_round"] = _sampling_rounds(rt)
         print(f"[{tag}] one sampling round of both workers at fixed "
-              f"weights (medians of 6): in turn in this thread "
+              f"weights (medians of 3): in turn in this thread "
               f"{out['sampling_round']['in_turn_ms']:.1f} ms, as two "
               f"runtime actors at once "
               f"{out['sampling_round']['actors_ms']:.1f} ms", flush=True)
@@ -2672,7 +2693,7 @@ def phase_appo_atari_learner(card):
     return out
 
 
-def _update_window(step, sample, n=20, windows=3):
+def _update_window(step, sample, n=20, windows=2):   # windows cut from 3
     """Median ms of one update over ``windows`` windows of ``n`` updates,
     each on a fresh minibatch from the algorithm's own buffer (the numpy
     draw and the copy to the card included, as in its training step); each
@@ -3684,7 +3705,8 @@ def _ppo_on_mesh(card, mesh):
 # ---------------------------------------------------------------------------
 
 HTTP_CLIENTS = 8
-HTTP_ROUNDS = 3          # one warm round, then the timed ones (cut from 5)
+HTTP_ROUNDS = 2          # one warm round, then the timed one (cut from
+                         # 5, then 3: PERF.md §6)
 HTTP_BATCH_WAIT_S = 0.1  # the @serve.batch window
 # greedy tokens a request, cut from the serve cell's 256 (phases 24 and
 # 30): each is a host-bound decode loop, and the whole script must stay
@@ -3747,7 +3769,8 @@ def _post_json(url, payload, timeout=120):
 
 def phase_http_serve(card, direct_tokens_per_s):
     """Phase 24: the flagship served over HTTP through ``serve.run``, with
-    8 clients posting at once for one warm round and 4 timed rounds."""
+    8 clients posting at once for one warm round and the timed ones
+    (``HTTP_ROUNDS`` in all)."""
     import concurrent.futures
 
     import ray_tpu_torch as rt
@@ -4144,7 +4167,7 @@ def phase_cluster(card, direct_tokens_per_s):
 # ---------------------------------------------------------------------------
 
 CG_SHAPE = (8, 128, 2048)       # the serve cell's activations
-CG_CALLS = 20                   # cut from 40 (PERF.md §6)
+CG_CALLS = 10                   # cut from 40, then 20 (PERF.md §6)
 CG_BIG_SLOT = 6 << 20           # holds the 4 MiB bf16 tensor and its pickle
 
 
@@ -4541,15 +4564,15 @@ def phase_pipeline(card):
 # ---------------------------------------------------------------------------
 
 GANG_SEED = 3             # phase 5's weights and batch
-GANG_TIMED = 3            # after one settling step
+GANG_TIMED = 2            # after one settling step (cut from 3, PERF.md §6)
 # The gang worker against the driver, the same program on the same card:
 # the same kernels and cuBLAS calls from the same weights and batch, so the
 # losses differ only where a reduction's order is not fixed (atomics in
 # the embedding's backward); phase 23 holds its one-rank mesh step to the
 # same bound.
 GANG_LOSS_TOL = 2e-3
-# timed steps cut from 10 to 5 (PERF.md §6): phase 33's seconds
-RESNET_GANG_WARM, RESNET_GANG_TIMED = 3, 5
+# timed steps cut from 10 to 5, then 3 (PERF.md §6)
+RESNET_GANG_WARM, RESNET_GANG_TIMED = 3, 3
 # the first ResNet-50 loss (bf16 convolutions, cudnn.benchmark on) in the
 # gang against phase 11's from the same seeded weights and images: cuDNN
 # may time its way to other algorithms in another process
@@ -4684,8 +4707,11 @@ def phase_trainer_gang(card, resnet_run):
     import os
     import tempfile
 
+    import threading
+
     import ray_tpu_torch as rt
     from ray_tpu_torch.cluster.cluster_utils import Cluster
+    from ray_tpu_torch.cluster.protocol import get_client
     from ray_tpu_torch.models import transformer_num_params
     from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchTrainer
     t_phase = time.perf_counter()
@@ -4706,17 +4732,48 @@ def phase_trainer_gang(card, resnet_run):
             check(res.get("GPU") == 1.0,
                   f"trainer-gang: the head counts {res.get('GPU')} GPUs, "
                   f"want 1")
+            # the gang goes through SLICE on the head's NVLink domain
+            domain = c.nodes[0].gpu_domain
+            check(domain is not None, "trainer-gang: the head reports no "
+                  "NVLink domain")
+            scaling = ScalingConfig(topology=domain["accelerator_type"])
+            check(scaling.num_workers == 1, f"trainer-gang: topology "
+                  f"{domain['accelerator_type']} gives "
+                  f"{scaling.num_workers} workers, want 1")
+            placed, done = [], threading.Event()
+
+            def watch(cli=get_client(c.address)):
+                while not done.is_set():
+                    placed.extend(
+                        (g["strategy"], g["slice_id"])
+                        for g in cli.call("list_placement_groups")
+                        if g["state"] == "CREATED")
+                    done.wait(0.2)
+
+            watcher = threading.Thread(target=watch, daemon=True)
+            watcher.start()
             with tempfile.TemporaryDirectory() as tmp:
                 t_fit = time.time()
-                result = TorchTrainer(
-                    gang_loop, scaling_config=ScalingConfig(num_workers=1),
-                    run_config=RunConfig(storage_path=tmp,
-                                         name="trainer-gang")).fit()
+                try:
+                    result = TorchTrainer(
+                        gang_loop, scaling_config=scaling,
+                        run_config=RunConfig(storage_path=tmp,
+                                             name="trainer-gang")).fit()
+                finally:
+                    done.set()
+                    watcher.join()
                 fit_s = time.time() - t_fit
         finally:
             rt.shutdown()
     finally:
         c.shutdown()
+    print(f"[trainer-gang] ScalingConfig(topology="
+          f"{domain['accelerator_type']!r}): the gang's placement groups "
+          f"(strategy, domain) {sorted(set(placed))}; the head's domain "
+          f"{domain['slice_id']}", flush=True)
+    check(sorted(set(placed)) == [("SLICE", domain["slice_id"])],
+          f"trainer-gang: the gang was placed as {sorted(set(placed))}, "
+          f"want SLICE on {domain['slice_id']}")
     check(result.error is None, f"trainer-gang: the gang failed: "
                                 f"{result.error}")
     hist = result.metrics_history
@@ -4819,8 +4876,8 @@ def phase_trainer_gang(card, resnet_run):
 # phase 29: the data library feeding the trainer's gang
 # ---------------------------------------------------------------------------
 
-DATA_TEXT_BYTES = 4 << 20       # the synthetic corpus, at least (cut
-                                # from 16 MiB, PERF.md §6)
+DATA_TEXT_BYTES = 2 << 20       # the synthetic corpus, at least (cut
+                                # from 16 MiB, then 4, PERF.md §6)
 DATA_BLOCKS = 16                # from_items' parallelism
 DATA_BATCH = 8                  # the train cell's batch of 8 x 2048
 IMAGE_BLOCKS = RESNET_GANG_WARM + RESNET_GANG_TIMED   # one batch a step
@@ -5277,7 +5334,8 @@ def phase_data_train(card, gang):
 
 SC_SEED = 24               # phase 24's prompts and weights
 SC_COMPILED_CALLS = 1      # LM calls through each handle
-SC_DOUBLER_CALLS = 200     # round trips a handle, in 4 turns
+SC_DOUBLER_CALLS = 100     # round trips a handle, in 4 turns (cut from
+                           # 200, PERF.md §6)
 SC_RECOVERY_S = 300
 
 
@@ -5653,7 +5711,8 @@ def phase_serve_cluster(card, http_run, cgraph_run):
 # phase 31: the RL drivers on the port's cluster runtime
 # ---------------------------------------------------------------------------
 
-RLC_ASYNC_ITERS = 3       # IMPALA and APPO iterations on the cluster
+RLC_ASYNC_ITERS = 2       # IMPALA and APPO iterations on the cluster
+                          # (cut from 3, PERF.md §6)
 
 
 class SlowCartPole(CartPoleVectorEnv):
@@ -6021,6 +6080,7 @@ def control_echo(x):
 
 _CS_CLIENT = """
 import json
+import pickle
 import sys
 import time
 
@@ -6028,12 +6088,37 @@ import numpy as np
 
 import chip_smoke as cs
 import ray_tpu_torch as rt
+from ray_tpu_torch.client import common
+from ray_tpu_torch.cluster.protocol import get_client
 
 if __name__ == "__main__":
     t0 = time.perf_counter()
     rt.init(address="client://" + sys.argv[1])
     connect_s = time.perf_counter() - t0
     prompt = np.load(sys.argv[2])
+    # first a num_gpus=1 task named by import path, as a client in another
+    # language sends it: its own session on the proxy's wire, no function
+    # blob; the proxy imports the function and pickles it for the workers.
+    # Its GPU worker goes back to the pool, where the actor below finds it.
+    wire = get_client(sys.argv[1])
+    sess = wire.call("cp_connect", meta={"client": "import_path"})["session"]
+    submitted = time.time()
+    t0 = time.perf_counter()
+    resp = wire.call("cp_task", session=sess, desc=None, blob=None,
+                     args_blob=pickle.dumps(
+                         ([cs.CS_SEED, prompt, cs.CS_NEW], {})),
+                     opts={"num_gpus": 1},
+                     import_path="chip_smoke:control_generate_task")
+    assert resp["ok"], resp["error"]
+    oids = [m[1] for m in common.loads(resp["refs"], tuple)]
+    got = wire.call("cp_get", session=sess, oids=oids,
+                    timeout=cs.CS_LIMIT_S, _timeout=cs.CS_LIMIT_S + 30)
+    assert got["ok"], got["error"]
+    ip_tokens, ip_launches, ip_tps, ip_start = common.loads(
+        got["values"][0], tuple)
+    import_s = time.perf_counter() - t0
+    wire.call("cp_disconnect", session=sess)
+    np.save(sys.argv[4], ip_tokens)
     created = time.time()
     t0 = time.perf_counter()
     actor = rt.remote(num_gpus=1)(cs.ControlLM).remote(cs.CS_SEED)
@@ -6052,7 +6137,12 @@ if __name__ == "__main__":
         "tokens_per_s": tps, "connect_s": connect_s, "first_call_s": first_s,
         "spawn_s": start["started"] - created,
         "cuda_and_weights_s": start["cuda_and_weights_s"],
-        "pid": start["pid"], "round_trips_per_s": trips}), flush=True)
+        "pid": start["pid"], "round_trips_per_s": trips,
+        "import_path": {
+            "launches": list(ip_launches), "tokens_per_s": ip_tps,
+            "call_s": import_s, "spawn_s": ip_start["started"] - submitted,
+            "cuda_and_weights_s": ip_start["cuda_and_weights_s"],
+            "pid": ip_start["pid"]}}), flush=True)
     rt.kill(actor)
     rt.shutdown()
 """
@@ -6141,6 +6231,43 @@ def _until_clean(prefixes, apps_before, limit_s=30.0):
         time.sleep(0.2)
 
 
+def domain_view(card, daemon, conductor, tag):
+    """The card's NVLink domain as the head's daemon detected it
+    (``gpu/topology.py:detect_domain``) and the conductor's domain view
+    (``get_slices``): the domain's type must name the card's generation and
+    count the visible cards, and the view must hold it, complete, with the
+    head as its one host."""
+    from ray_tpu_torch.gpu import topology
+    from ray_tpu_torch.gpu.topology import DomainSpec
+    t0 = time.perf_counter()
+    texts = [topology._smi(*args) for args in (
+        ("--query-gpu=index,uuid,name", "--format=csv,noheader"),
+        ("topo", "-m"), ("-q",))]
+    smi_s = time.perf_counter() - t0
+    dom = daemon.gpu_domain
+    slices = conductor.call("get_slices")
+    shown = [{**s, "node_ids": [n.hex()[:8] for n in s["node_ids"]]}
+             for s in slices]
+    print(f"[{tag}] the head's NVLink domain (detect_domain, in the "
+          f"daemon's start): {dom}; the conductor's get_slices(): {shown}"
+          f"; what a detection costs a daemon's start: nvidia-smi's list, "
+          f"topo -m and -q {smi_s:.2f} s ({[len(t) for t in texts]} bytes) "
+          f"on {card}", flush=True)
+    check(dom is not None, f"[{tag}] the head reports no NVLink domain")
+    spec = DomainSpec.parse(dom["accelerator_type"])
+    name = torch.cuda.get_device_name(0).lower()
+    check(spec.generation in name
+          and spec.num_gpus == torch.cuda.device_count(),
+          f"[{tag}] domain {dom['accelerator_type']} against the card "
+          f"{name!r} and {torch.cuda.device_count()} visible")
+    check([(s["slice_id"], s["accelerator_type"], s["complete"],
+            s["node_ids"]) for s in slices]
+          == [(dom["slice_id"], dom["accelerator_type"], True,
+               [daemon.node_id])],
+          f"[{tag}] get_slices() {slices} against the head's {dom}")
+    return dom, smi_s
+
+
 def phase_control_surface(card):
     """Phase 32: ``init()`` starts a head; then a head from the CLI drives
     the flagship on the card through a ``client://`` driver and a submitted
@@ -6176,6 +6303,8 @@ def phase_control_surface(card):
         check(len(nodes) == 1 and nodes[0]["is_head_node"]
               and nodes[0]["state"] == "ALIVE",
               f"[{tag}] list_nodes() after init(): {nodes}")
+        domain, steps["detect_domain_s"] = domain_view(
+            card, head._owned_daemon, head.conductor, tag)
     finally:
         rt.shutdown()
     left, segs, apps = _until_clean([prefix], apps_before)
@@ -6207,7 +6336,8 @@ def phase_control_surface(card):
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
     paths = {name: os.path.join(work, name) for name in (
-        "client.py", "job.py", "prompt.npy", "client_tokens.npy")}
+        "client.py", "job.py", "prompt.npy", "client_tokens.npy",
+        "import_path_tokens.npy")}
     with open(paths["client.py"], "w") as f:
         f.write(_CS_CLIENT)
     with open(paths["job.py"], "w") as f:
@@ -6232,7 +6362,8 @@ def phase_control_surface(card):
         t0 = time.perf_counter()
         out = subprocess.run(
             [sys.executable, paths["client.py"], proxy, paths["prompt.npy"],
-             paths["client_tokens.npy"]], env=env, capture_output=True,
+             paths["client_tokens.npy"], paths["import_path_tokens.npy"]],
+            env=env, capture_output=True,
             text=True, timeout=CS_LIMIT_S, cwd=work)
         steps["client_s"] = time.perf_counter() - t0
         check(out.returncode == 0, f"[{tag}] the client driver exited "
@@ -6246,9 +6377,9 @@ def phase_control_surface(card):
               f"differ from the driver's direct generate; flash launches "
               f"{tuple(client['launches'])}; {client['tokens_per_s']:.1f} "
               f"tokens/s in the worker (driver's direct generate "
-              f"{d_tps:.1f}); the GPU worker's start behind the client: "
-              f"spawn {client['spawn_s']:.2f} s, CUDA and weights "
-              f"{client['cuda_and_weights_s']:.2f} s, first call "
+              f"{d_tps:.1f}); the actor's worker behind the client: "
+              f"start {client['spawn_s']:.2f} s after its creation, CUDA "
+              f"and weights {client['cuda_and_weights_s']:.2f} s, first call "
               f"{client['first_call_s']:.2f} s; connect "
               f"{client['connect_s']:.3f} s; {client['round_trips_per_s']:.1f}"
               f" round trips/s of a trivial task through the client on "
@@ -6259,6 +6390,30 @@ def phase_control_surface(card):
         check(tuple(client["launches"]) == (cfg.n_layers, 0, 0, 0),
               f"[{tag}] the client's worker launched {client['launches']}, "
               f"want ({cfg.n_layers}, 0, 0, 0)")
+        ip = client["import_path"]
+        ip_tokens = np.load(paths["import_path_tokens.npy"])
+        ip_rows = int((ip_tokens != want).any(1).sum()) \
+            if ip_tokens.shape == want.shape else -1
+        ip["reused_by_the_actor"] = ip["pid"] == client["pid"]
+        print(f"[{tag}] import_path task (chip_smoke:control_generate_task, "
+              f"num_gpus=1, sent before the actor with no function blob on "
+              f"the proxy's wire; pid {ip['pid']}, a fresh GPU worker, "
+              + ("which the actor then took from the pool" if
+                 ip["reused_by_the_actor"] else "which the actor did not "
+                 "reuse")
+              + f"): {ip_rows} rows differ from the driver's direct "
+              f"generate; flash launches {tuple(ip['launches'])}; "
+              f"{ip['tokens_per_s']:.1f} tokens/s in the worker; submit to "
+              f"the worker's start {ip['spawn_s']:.2f} s (the proxy's import "
+              f"of chip_smoke and the spawn), CUDA and weights "
+              f"{ip['cuda_and_weights_s']:.2f} s, the call "
+              f"{ip['call_s']:.2f} s on {card}", flush=True)
+        check(ip_rows == 0, f"[{tag}] the import_path task's tokens "
+              f"{ip_tokens.shape} differ from the driver's direct generate "
+              f"in {ip_rows} rows")
+        check(tuple(ip["launches"]) == (cfg.n_layers, 0, 0, 0),
+              f"[{tag}] the import_path task's worker launched "
+              f"{ip['launches']}, want ({cfg.n_layers}, 0, 0, 0)")
 
         # 3. a submitted job runs the same generate in a num_gpus=1 task
         t0 = time.perf_counter()
@@ -6346,11 +6501,12 @@ def phase_control_surface(card):
     print(f"[{tag}] step seconds "
           + ", ".join(f"{k} {v:.2f}" for k, v in steps.items())
           + f"; phase seconds {seconds:.1f} on {card}", flush=True)
-    launches = tuple(a + b for a, b in zip(client["launches"],
-                                            job["launches"]))
+    launches = tuple(a + b + c for a, b, c in zip(
+        client["launches"], client["import_path"]["launches"],
+        job["launches"]))
     return dict(launches=launches, steps=steps, seconds=seconds,
                 client=client, job=job, direct_tokens_per_s=d_tps,
-                new_tokens=CS_NEW)
+                new_tokens=CS_NEW, domain=domain)
 
 
 # ---------------------------------------------------------------------------
@@ -6445,6 +6601,7 @@ def phase_elastic_durable(card, control_run):
     import ray_tpu_torch as rt
     from ray_tpu_torch import state
     from ray_tpu_torch.cluster.protocol import get_client
+    from ray_tpu_torch.gpu.topology import generation_from_name
     from ray_tpu_torch.job_submission import JobSubmissionClient
     from ray_tpu_torch.workflow.storage import storage_for
     tag, steps = "elastic", {}
@@ -6550,7 +6707,11 @@ def phase_elastic_durable(card, control_run):
               and store.exists(f"{wf_id}/dag.pkl"),
               f"[{tag}] the first job {info.status}, workflow "
               f"{ran['status']}, error {ran['error']}")
-        check(len(ever) == 1 and ever[0]["resources_total"] == ED_GPU_NODE,
+        # the node type's resources, and the "GPU-<gen>" its daemon adds
+        # beside "GPU" for the card's NVLink domain (gpu/topology.py)
+        gen = generation_from_name(torch.cuda.get_device_name(0))
+        want_total = {**ED_GPU_NODE, f"GPU-{gen}": ED_GPU_NODE["GPU"]}
+        check(len(ever) == 1 and ever[0]["resources_total"] == want_total,
               f"[{tag}] the autoscaler launched {len(ever)} GPU nodes: "
               f"{[n['resources_total'] for n in ever]}")
         card_digest = token_digest(card_out[0])
@@ -6929,6 +7090,98 @@ def phase_tune(card, train_run):
                 t_fit=t_fit, seconds=seconds)
 
 
+# ---------------------------------------------------------------------------
+# phase 36: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+# (file, arguments, flash launches (fwd, dkv, dq, delta) it must make)
+EXAMPLES = (
+    # 5 steps of 2 layers, remat: the forward twice a layer, each backward
+    # kernel once
+    ("02_train_lm_multichip.py", (), (20, 10, 10, 10)),
+    # one generate: the prefill, a forward a layer; the decode runs no kernel
+    ("03_serve_lm.py", ("--local-mode",), (2, 0, 0, 0)),
+    # RL reaches no Pallas kernel in the JAX package, nor a flash one here
+    ("05_rl_cartpole.py", ("--local-mode",), (0, 0, 0, 0)))
+
+
+def _run_example(path, argv):
+    """``path`` run as ``__main__`` with ``argv`` in this process: (its
+    standard output, its flash launches, its seconds)."""
+    import contextlib
+    import io
+    import runpy
+    _reset_launch_counts()
+    buf, saved = io.StringIO(), sys.argv
+    sys.argv = argv
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = saved
+    return buf.getvalue(), _launch_counts(), time.perf_counter() - t0
+
+
+def phase_examples(card):
+    """Phase 36: ``examples_torch/02``, ``03`` and ``05``, the examples that
+    touch a device, on the card through ``runpy`` in this process, so that
+    neither ``import torch`` nor torch._dynamo's is paid again: their
+    lines, and the flash launches each made (``02``'s one-rank gang and
+    ``03``'s replica are threads of this process)."""
+    import os
+    tag = "examples"
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    apps_before = _compute_apps()
+    got = {}
+    for name, args, want in EXAMPLES:
+        out, launches, seconds = _run_example(
+            os.path.join(repo, "examples_torch", name), [name, *args])
+        got[name] = {"stdout": out, "launches": launches,
+                     "seconds": seconds}
+        print(f"[{tag}] {name}: {seconds:.1f} s, flash launches "
+              f"{launches} (want {want}) on {card}; its lines:\n"
+              + out.rstrip(), flush=True)
+        check(launches == want, f"[{tag}] {name} launched {launches}, want "
+              f"{want}")
+    lm = got["02_train_lm_multichip.py"]["stdout"]
+    losses = [float(ln.split("loss=")[1]) for ln in lm.splitlines()
+              if ln.startswith("step ")]
+    check(len(losses) == 5 and all(np.isfinite(losses))
+          and losses[-1] < losses[0]
+          and f"ranks: 1, mesh: {{'dp': {torch.cuda.device_count()}}}" in lm
+          and "param sharding example:" in lm,
+          f"[{tag}] 02's lines:\n{lm}")
+    served = got["03_serve_lm.py"]["stdout"]
+    check(served.count("'generated_tokens': [") == 1
+          and len(served.split("'generated_tokens': [")[1].split("]")[0]
+                  .split(",")) == 16 and "'prompt': 'gpu'" in served,
+          f"[{tag}] 03's lines:\n{served}")
+    rl = got["05_rl_cartpole.py"]["stdout"]
+    steps = [int(ln.split("steps=")[1]) for ln in rl.splitlines()
+             if ln.startswith("iter ")]
+    check(steps == [1024 * i for i in range(1, 6)] and "checkpoint:" in rl,
+          f"[{tag}] 05's lines:\n{rl}")
+    deadline = time.monotonic() + 30
+    apps = _compute_apps()
+    while len(apps) > len(apps_before) and time.monotonic() < deadline:
+        time.sleep(0.2)
+        apps = _compute_apps()
+    check(len(apps) <= len(apps_before), f"[{tag}] card contexts left: "
+          f"{apps} (before the phase {apps_before})")
+    seconds = time.perf_counter() - t_phase
+    print(f"[{tag}] phase seconds {seconds:.1f} (the examples "
+          + ", ".join(f"{n} {got[n]['seconds']:.1f}" for n, _, _ in EXAMPLES)
+          + ")", flush=True)
+    launches = tuple(sum(got[n]["launches"][i] for n, _, _ in EXAMPLES)
+                     for i in range(4))
+    return dict(launches=launches, seconds=seconds,
+                by_example={n: dict(launches=tuple(got[n]["launches"]),
+                                    seconds=got[n]["seconds"])
+                            for n, _, _ in EXAMPLES})
+
+
 def _paths(runs, part):
     """Launches of one kernel (index ``part`` of the counts) by path."""
     return {path: (r["launches"][part] if isinstance(r["launches"], tuple)
@@ -6957,6 +7210,13 @@ def _keep_bytecode():
     return path, was_off
 
 
+def _timed(name, phase, *args):
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port runs on an NVIDIA card",
@@ -6965,33 +7225,39 @@ def main() -> int:
     cache, was_off = _keep_bytecode()
     print(f"[setup] bytecode of every import kept under {cache} (writing it "
           f"had been off: {was_off})", flush=True)
-    card, build = phase_card_and_build()
-    results = phase_kernel_checks()
-    bwd = phase_backward_checks()
-    runs = {"serve": phase_serving(card, flagship_cfg(), "serve", 0)}
-    phase_small_reference()
-    phase_long_prefill()
-    runs["train"] = phase_training(card, flagship_cfg(remat=True), "train", 3)
-    phase_small_training()
-    runs["moe_serve"] = phase_serving(card, moe_cfg(), "moe-serve", 10)
-    runs["moe_train"] = phase_training(card, moe_cfg(remat=True),
-                                       "moe-train", 15)
-    runs["vit_train"] = phase_vit_training(card)
-    phase_small_moe_and_vit()
-    runs["resnet_train"] = phase_resnet_training(card)
-    runs["resnet_train"]["small_f32_vs_cpu"] = phase_small_resnet()
-    runs["ppo_cartpole"], runs["ppo_cartpole_cpu_workers"] = \
-        phase_ppo_cartpole(card)
-    runs["ppo_atari_learner"] = phase_ppo_atari_learner(card)
-    runs["ppo_cartpole"]["small_f32_vs_cpu"] = phase_small_rl()
-    runs["ppo_drivers"] = phase_ppo_drivers(card, runs["ppo_cartpole"])
+    card, build = _timed("card and build", phase_card_and_build)
+    results = _timed("kernel checks", phase_kernel_checks)
+    bwd = _timed("backward checks", phase_backward_checks)
+    runs = {"serve": _timed("serve", phase_serving, card, flagship_cfg(),
+                            "serve", 0)}
+    _timed("small reference", phase_small_reference)
+    _timed("long prefill", phase_long_prefill)
+    runs["train"] = _timed("train", phase_training, card,
+                           flagship_cfg(remat=True), "train", 3)
+    _timed("small training", phase_small_training)
+    runs["moe_serve"] = _timed("moe serve", phase_serving, card, moe_cfg(),
+                               "moe-serve", 10)
+    runs["moe_train"] = _timed("moe train", phase_training, card,
+                               moe_cfg(remat=True), "moe-train", 15)
+    runs["vit_train"] = _timed("vit train", phase_vit_training, card)
+    _timed("small moe and vit", phase_small_moe_and_vit)
+    runs["resnet_train"] = _timed("resnet train", phase_resnet_training,
+                                  card)
+    runs["resnet_train"]["small_f32_vs_cpu"] = _timed(
+        "small resnet", phase_small_resnet)
+    runs["ppo_cartpole"], runs["ppo_cartpole_cpu_workers"] = _timed(
+        "ppo cartpole", phase_ppo_cartpole, card)
+    runs["ppo_atari_learner"] = _timed("ppo atari learner",
+                                       phase_ppo_atari_learner, card)
+    runs["ppo_cartpole"]["small_f32_vs_cpu"] = _timed("small rl",
+                                                      phase_small_rl)
+    runs["ppo_drivers"] = _timed("ppo drivers", phase_ppo_drivers, card,
+                                 runs["ppo_cartpole"])
     for name, phase in (("async", phase_async_drivers),
                         ("atari", phase_appo_atari_learner),
                         ("offpolicy", phase_offpolicy),
                         ("offline", phase_offline)):
-        t0 = time.perf_counter()
-        out = phase(card)
-        print(f"[phase] {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+        out = _timed(name, phase, card)
         if name == "atari":
             runs["appo_atari_learner"] = out
         elif name == "offline":
@@ -7000,76 +7266,46 @@ def main() -> int:
         else:
             runs.update({k + ("_pendulum" if k in ("td3", "ddpg")
                               else "_cartpole"): v for k, v in out.items()})
-    t0 = time.perf_counter()
-    runs["appo_cartpole"]["small_learners_f32_vs_cpu"] = \
-        phase_small_offpolicy()
-    print(f"[phase] small learners: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    rest = phase_rest_of_rl(card)
-    print(f"[phase] rest of RL: {time.perf_counter() - t0:.1f} s", flush=True)
+    runs["appo_cartpole"]["small_learners_f32_vs_cpu"] = _timed(
+        "small learners", phase_small_offpolicy)
+    rest = _timed("rest of RL", phase_rest_of_rl, card)
     runs.update({"qmix_coop": rest["qmix"], "maddpg_spread": rest["maddpg"],
                  "es_cartpole": rest["es"],
                  "shared_policy_coop": rest["coop"],
                  "bandit_ucb": rest["bandit_ucb"],
                  "bandit_ts": rest["bandit_ts"]})
-    t0 = time.perf_counter()
-    par = phase_parallel(card)
-    print(f"[phase] parallel: {time.perf_counter() - t0:.1f} s", flush=True)
+    par = _timed("parallel", phase_parallel, card)
     runs.update({"mesh_train": par["train"],
                  "ring_n1": par["attention"]["ring"],
                  "ulysses_n1": par["attention"]["ulysses"],
                  "pipeline_n1": par["pipeline"],
                  "ppo_mesh": par["ppo"],
                  "mesh_vit": par["vit"], "mesh_resnet": par["resnet"]})
-    t0 = time.perf_counter()
-    runs["http-serve"] = phase_http_serve(card, runs["serve"]["tokens_per_s"])
-    print(f"[phase] http serve: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["cluster-gpu-worker"] = phase_cluster(card,
-                                               runs["serve"]["tokens_per_s"])
-    print(f"[phase] cluster: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    runs["compiled-graph"] = phase_compiled_graph(card)
-    print(f"[phase] compiled graph: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["pipeline-mpmd"] = phase_pipeline(card)
-    print(f"[phase] pipeline: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    runs["trainer-gang"] = phase_trainer_gang(card, runs["resnet_train"])
-    print(f"[phase] trainer gang: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["data-train"] = phase_data_train(card, runs["trainer-gang"])
-    print(f"[phase] data train: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["serve-cluster"] = phase_serve_cluster(card, runs["http-serve"],
-                                                runs["compiled-graph"])
-    print(f"[phase] serve cluster: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["rl-cluster"] = phase_rl_cluster(card, runs["ppo_drivers"],
-                                          runs["ppo_cartpole_cpu_workers"])
-    print(f"[phase] rl cluster: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["control-surface"] = phase_control_surface(card)
-    print(f"[phase] control surface: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    runs["elastic-durable"] = phase_elastic_durable(card,
-                                                    runs["control-surface"])
-    print(f"[phase] elastic and durable: {time.perf_counter() - t0:.1f} s",
-          flush=True)
-    t0 = time.perf_counter()
-    micro = phase_microbench(card)
-    print(f"[phase] microbench: {time.perf_counter() - t0:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    runs["tune"] = phase_tune(card, runs["train"])
-    print(f"[phase] tune: {time.perf_counter() - t0:.1f} s", flush=True)
+    runs["http-serve"] = _timed("http serve", phase_http_serve, card,
+                                runs["serve"]["tokens_per_s"])
+    runs["cluster-gpu-worker"] = _timed("cluster", phase_cluster, card,
+                                        runs["serve"]["tokens_per_s"])
+    runs["compiled-graph"] = _timed("compiled graph", phase_compiled_graph,
+                                    card)
+    runs["pipeline-mpmd"] = _timed("pipeline", phase_pipeline, card)
+    runs["trainer-gang"] = _timed("trainer gang", phase_trainer_gang, card,
+                                  runs["resnet_train"])
+    runs["data-train"] = _timed("data train", phase_data_train, card,
+                                runs["trainer-gang"])
+    runs["serve-cluster"] = _timed("serve cluster", phase_serve_cluster,
+                                   card, runs["http-serve"],
+                                   runs["compiled-graph"])
+    runs["rl-cluster"] = _timed("rl cluster", phase_rl_cluster, card,
+                                runs["ppo_drivers"],
+                                runs["ppo_cartpole_cpu_workers"])
+    runs["control-surface"] = _timed("control surface",
+                                     phase_control_surface, card)
+    runs["elastic-durable"] = _timed("elastic and durable",
+                                     phase_elastic_durable, card,
+                                     runs["control-surface"])
+    micro = _timed("microbench", phase_microbench, card)
+    runs["tune"] = _timed("tune", phase_tune, card, runs["train"])
+    runs["examples"] = _timed("examples", phase_examples, card)
     fwd_main = results[("serve_prefill", "bf16")]
 
     def at(result, keys):

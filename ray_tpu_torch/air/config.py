@@ -12,8 +12,15 @@ Where the port differs from the JAX module, in ``ScalingConfig``:
   rule (``device=None`` is the card); ``use_gpu=False`` asks for CPU
   workers, as the CPU tests do. A gang that cannot have its cards raises at
   ``fit()`` (``train/trainer.py``).
-- ``topology`` names a TPU ICI slice in the JAX package and raises
-  ``ValueError`` here: the port has no slice placement.
+- ``topology`` names an NVLink domain type (``"h100-8"``,
+  ``gpu/topology.py:DomainSpec``) where the JAX package names a TPU ICI
+  slice (``"v4-8"``), and the gang is placed with strategy ``SLICE`` on
+  the hosts of one domain. The JAX gang is one process a slice host, each
+  reserving the host's chips; the port's is one NCCL rank a card. So
+  ``num_workers`` defaults to the domain's cards over ``gpus_per_worker``
+  (one card a worker unless given), and a ``num_workers`` whose cards do
+  not cover the domain raises ``ValueError``, as the JAX package's raises
+  for a count other than the slice's hosts.
 - ``as_placement_group_factory`` returns a module-level callable (a
   ``functools.partial`` of ``placement_group``), which pickles by import
   path, where the JAX package returns a lambda.
@@ -33,17 +40,38 @@ class ScalingConfig:
     gpus_per_worker: float = 0.0              # cards a worker (0: one)
     cpus_per_worker: float = 1.0
     resources_per_worker: Dict[str, float] = field(default_factory=dict)
-    topology: str = ""                        # refused: no slice placement
+    topology: str = ""                        # NVLink domain, e.g. "h100-8"
     placement_strategy: str = "PACK"
     # Parallelism axes for the step (dp=-1 -> infer remainder).
     mesh: Dict[str, int] = field(default_factory=dict)
 
     def __post_init__(self):
         if self.topology:
-            raise ValueError(
-                f"topology={self.topology!r} names a TPU ICI slice; the "
-                f"port has no slice placement (give num_workers and "
-                f"gpus_per_worker instead)")
+            # topology="h100-8" makes the config domain-native: one worker
+            # a card (or a gpus_per_worker share), gang-placed with strategy
+            # SLICE on the hosts of one NVLink domain.
+            from ray_tpu_torch.gpu.topology import DomainSpec
+            spec = DomainSpec.parse(self.topology)
+            if self.use_gpu is False:
+                raise ValueError(
+                    f"topology {self.topology!r} is a domain of cards; "
+                    f"use_gpu=False asks for CPU workers")
+            per = float(self.gpus_per_worker or 1.0)
+            workers = spec.num_gpus / per
+            if workers != int(workers) or per > spec.gpus_per_host:
+                raise ValueError(
+                    f"topology {self.topology!r} has {spec.num_gpus} cards, "
+                    f"{spec.gpus_per_host} a host; gpus_per_worker={per} "
+                    f"does not divide them into whole ranks on one host each")
+            if self.num_workers <= 1:
+                self.num_workers = int(workers)
+            elif self.num_workers != int(workers):
+                raise ValueError(
+                    f"topology {self.topology!r} has {spec.num_gpus} cards "
+                    f"but num_workers={self.num_workers} at "
+                    f"{per} a worker; one NCCL rank per card share of the "
+                    f"domain is required for the gang")
+            self.gpus_per_worker = per
         if self.use_gpu is False and self.gpus_per_worker:
             raise ValueError(
                 f"use_gpu=False with gpus_per_worker="
@@ -58,9 +86,14 @@ class ScalingConfig:
 
     def as_placement_group_factory(self):
         """One bundle per worker (parity: air/config.py
-        as_placement_group_factory -> PlacementGroupFactory)."""
+        as_placement_group_factory -> PlacementGroupFactory). With a
+        topology, the PG is domain-granular (strategy SLICE)."""
         from ray_tpu_torch.util.placement_group import placement_group
         bundles = [self.worker_resources() for _ in range(self.num_workers)]
+        if self.topology:
+            return functools.partial(placement_group, bundles,
+                                     strategy="SLICE",
+                                     slice_topology=self.topology)
         return functools.partial(placement_group, bundles,
                                  strategy=self.placement_strategy)
 

@@ -1,6 +1,6 @@
 """ray_tpu_torch.autoscaler — load-driven cluster scaling, ported from
-``ray_tpu/autoscaler/`` (its GCP TPU-VM provider, ``gcp.py``, is not: a
-GPU-VM provider is still to design, ROADMAP.md A.5(d)).
+``ray_tpu/autoscaler/``. Its GCP TPU-VM provider (``gcp.py``) becomes a
+GCE GPU-VM provider (``gce.py``) that scales whole NVLink domains.
 
 Parity surface: reference python/ray/autoscaler — StandardAutoscaler
 (_private/autoscaler.py:172), bin-packing ResourceDemandScheduler

@@ -21,14 +21,20 @@ Where the port differs: a task's function or an actor's class arrives as
 the client's blob, pickled by import path (``core/serialization.py``), and
 goes on to the workers as it came. The proxy never loads it, so it never
 imports the client's code; its descriptor is keyed on the blob's hash, as
-the JAX package keys a function on its cloudpickle's. The JAX proxy's
-``import_path`` targets, which its C++ worker API sends, are not ported
-(ROADMAP.md A.5(d)).
+the JAX package keys a function on its cloudpickle's.
+
+A task or an actor may instead name its target as ``import_path=
+"pkg.module:attr"`` (what a client in another language sends, such as the
+JAX package's C++ worker API). The proxy imports that target, pickles it
+as the port's serializer pickles any module-level callable, and from there
+on treats it as a client's blob: the workers receive what a Python client
+would have sent them.
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import os
 import pickle
 import threading
@@ -38,7 +44,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.client import common
 from ray_tpu_torch.cluster.protocol import RpcServer
-from ray_tpu_torch.core.actor import ActorHandle
+from ray_tpu_torch.core import serialization
+from ray_tpu_torch.core.actor import ActorClass, ActorHandle
 from ray_tpu_torch.core.ids import ActorID, ObjectID
 from ray_tpu_torch.core.options import (ActorOptions, TaskOptions,
                                         make_actor_options, make_task_options)
@@ -52,6 +59,26 @@ def _blob_descriptor(desc: FunctionDescriptor, blob: bytes
     the client's process, which two clients can share."""
     return FunctionDescriptor(function_id=hashlib.sha1(blob).hexdigest(),
                               module=desc.module, qualname=desc.qualname)
+
+
+def _import_path(path: str):
+    """Resolve "pkg.module:attr" (cross-language task/actor target)."""
+    import importlib
+    mod_name, _, attr = path.partition(":")
+    if not attr:
+        raise ValueError(f"import path {path!r} must be 'module:attr'")
+    obj = importlib.import_module(mod_name)
+    for part in attr.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _import_path_blob(path: str):
+    """(target, desc, blob) for ``path``: the target behind an ``@remote``
+    wrapper, pickled by import path as a Python client pickles it."""
+    target = serialization._unwrap(_import_path(path))
+    return (target, FunctionDescriptor.for_callable(target),
+            serialization.dumps(target))
 
 
 class _Session:
@@ -265,33 +292,44 @@ class ClientProxy:
         return self._guarded(session, body)
 
     # -- tasks -------------------------------------------------------------
-    def rpc_cp_task(self, session: str, desc: FunctionDescriptor,
-                    blob: bytes, args_blob: bytes,
+    def rpc_cp_task(self, session: str, desc: Optional[FunctionDescriptor],
+                    blob: Optional[bytes], args_blob: bytes,
                     opts: Optional[TaskOptions] = None,
+                    import_path: Optional[str] = None,
                     submission_id: Optional[str] = None) -> dict:
         def body(s):
+            d, b = desc, blob
+            if import_path is not None:
+                _, d, b = _import_path_blob(import_path)
             topts = (opts if isinstance(opts, TaskOptions)
                      else make_task_options(None, **(opts or {})))
             args, kwargs = self._dec(s, args_blob)
-            refs = self._rt.submit_task(_blob_descriptor(desc, blob), blob,
+            refs = self._rt.submit_task(_blob_descriptor(d, b), b,
                                         args, kwargs, topts)
             return {"ok": True, "refs": self._enc(s, refs)}
         return self._idempotent(session, submission_id, body)
 
     # -- actors ------------------------------------------------------------
-    def rpc_cp_actor_create(self, session: str, desc: FunctionDescriptor,
-                            blob: bytes, args_blob: bytes,
+    def rpc_cp_actor_create(self, session: str,
+                            desc: Optional[FunctionDescriptor],
+                            blob: Optional[bytes], args_blob: bytes,
                             opts: Optional[ActorOptions] = None,
                             methods: Optional[dict] = None,
                             is_async: bool = False,
+                            import_path: Optional[str] = None,
                             submission_id: Optional[str] = None) -> dict:
         def body(s):
+            d, b, m, asy = desc, blob, methods, is_async
+            if import_path is not None:
+                cls, d, b = _import_path_blob(import_path)
+                m = ActorClass._scan_methods(cls)
+                asy = any(inspect.iscoroutinefunction(getattr(cls, name))
+                          for name in m)
             aopts = (opts if isinstance(opts, ActorOptions)
                      else make_actor_options(None, **(opts or {})))
             args, kwargs = self._dec(s, args_blob)
-            handle = self._rt.create_actor(_blob_descriptor(desc, blob),
-                                           blob, args, kwargs, aopts,
-                                           methods or {}, is_async)
+            handle = self._rt.create_actor(_blob_descriptor(d, b), b, args,
+                                           kwargs, aopts, m or {}, asy)
             return {"ok": True, "actor": self._enc(s, handle)}
         return self._idempotent(session, submission_id, body)
 

@@ -42,7 +42,12 @@ class Cluster:
                  resources: Optional[Dict[str, float]] = None,
                  object_store_bytes: int = 256 << 20,
                  is_head: bool = False,
+                 gpu_domain: Optional[dict] = None,
                  host: str = "127.0.0.1") -> NodeDaemon:
+        """``gpu_domain`` injects fake NVLink-domain membership (slice_id,
+        accelerator_type, generation, worker_id, num_hosts, gpus_per_host),
+        the test analog of a GPU host's ``gpu.topology.detect_domain()``, as
+        the JAX ``tpu_slice`` fakes a TPU host's slice."""
         total = {"CPU": float(num_cpus)}
         if num_gpus is None and is_head:
             from ray_tpu_torch.gpu.topology import local_gpu_count
@@ -52,7 +57,7 @@ class Cluster:
         total.update(resources or {})
         node = NodeDaemon(self.address, resources=total, host=host,
                           object_store_bytes=object_store_bytes,
-                          is_head=is_head)
+                          is_head=is_head, gpu_domain=gpu_domain)
         self.nodes.append(node)
         return node
 

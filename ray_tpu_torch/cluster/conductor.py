@@ -13,6 +13,15 @@ API/timeline (gcs_task_manager.h:61).
 One conductor per cluster. All state is in-memory tables behind one lock,
 with condition-variable long-polls standing in for the reference's pub/sub
 channels (src/ray/pubsub/publisher.h:302).
+
+Where the port differs from ``ray_tpu/cluster/conductor.py``: the gang unit
+is the NVLink domain a GPU node reports (``gpu_domain``), not the TPU slice
+(``tpu_slice``). The domain view and ``rpc_get_slices`` keep the JAX names
+(``slice_id``, ``accelerator_type``, ...). A ``SLICE`` placement group's
+bundle is one rank's share (a card, or a host's cards), not a whole host: the
+planner fills the domain's hosts in ``worker_id`` order, each host up to its
+share of the domain's cards before the next, so with one host-sized bundle a
+host it is the JAX rule (bundle i on the rank-i host).
 """
 
 from __future__ import annotations
@@ -49,11 +58,13 @@ class ActorInfo:
 
 class PlacementGroupInfo:
     def __init__(self, pg_id: bytes, bundles: List[Dict[str, float]],
-                 strategy: str, name: str):
+                 strategy: str, name: str, slice_topology: str = ""):
         self.pg_id = pg_id
         self.bundles = bundles
         self.strategy = strategy
         self.name = name
+        self.slice_topology = slice_topology  # SLICE strategy filter (h100-8)
+        self.slice_id: Optional[str] = None   # chosen domain once CREATED
         self.state = "PENDING"        # PENDING | CREATED | REMOVED
         self.bundle_nodes: List[Optional[bytes]] = [None] * len(bundles)
         self.placing = False          # a 2PC attempt is in flight
@@ -226,7 +237,8 @@ class Conductor:
             "pgs": [
                 {"pg_id": pg.pg_id, "bundles": pg.bundles,
                  "strategy": pg.strategy, "name": pg.name,
-                 "state": pg.state, "bundle_nodes": pg.bundle_nodes}
+                 "slice_topology": pg.slice_topology, "state": pg.state,
+                 "bundle_nodes": pg.bundle_nodes, "slice_id": pg.slice_id}
                 for pg in self._pgs.values()],
             "kv": dict(self._kv),
             "functions": dict(self._functions),
@@ -248,10 +260,12 @@ class Conductor:
             if name and a.state != DEAD:
                 self._named_actors[(ns, name)] = a.actor_id
         for rec in snap.get("pgs", ()):
-            pg = PlacementGroupInfo(rec["pg_id"], rec["bundles"],
-                                    rec["strategy"], rec["name"])
+            pg = PlacementGroupInfo(
+                rec["pg_id"], rec["bundles"], rec["strategy"], rec["name"],
+                slice_topology=rec["slice_topology"])
             pg.state = rec["state"]
             pg.bundle_nodes = list(rec["bundle_nodes"])
+            pg.slice_id = rec["slice_id"]
             self._pgs[pg.pg_id] = pg
         self._kv.update(snap.get("kv", {}))
         self._functions.update(snap.get("functions", {}))
@@ -305,13 +319,14 @@ class Conductor:
         elif kind == "pg":
             pg = PlacementGroupInfo(
                 data["pg_id"], data["bundles"], data["strategy"],
-                data["name"])
+                data["name"], slice_topology=data["slice_topology"])
             self._pgs[pg.pg_id] = pg
         elif kind == "pg_state":
             pg = self._pgs.get(data["pg_id"])
             if pg is not None:
                 pg.state = data["state"]
                 pg.bundle_nodes = list(data["bundle_nodes"])
+                pg.slice_id = data["slice_id"]
         elif kind == "pg_removed":
             self._pgs.pop(data["pg_id"], None)
         elif kind == "kv":
@@ -353,7 +368,8 @@ class Conductor:
     # ------------------------------------------------------------------
     def rpc_register_node(self, node_id: bytes, address: str,
                           resources: Dict[str, float], store_socket: str,
-                          is_head: bool = False) -> dict:
+                          is_head: bool = False,
+                          gpu_domain: Optional[dict] = None) -> dict:
         with self._cv:
             self._nodes[node_id] = {
                 "node_id": node_id,
@@ -362,6 +378,7 @@ class Conductor:
                 "resources_available": dict(resources),
                 "store_socket": store_socket,
                 "is_head": is_head,
+                "gpu_domain": dict(gpu_domain) if gpu_domain else None,
                 "alive": True,
                 "last_heartbeat": time.monotonic(),
             }
@@ -379,6 +396,48 @@ class Conductor:
         for pg in pending:
             self._try_place_pg(pg)
         return {"ok": True, "epoch": self._epoch}
+
+    # ------------------------------------------------------------------
+    # NVLink domain view (the role of the JAX conductor's TPU slice view:
+    # gang placement on the cards one NCCL program's fast collectives span)
+    # ------------------------------------------------------------------
+    def _slice_view(self) -> Dict[str, dict]:
+        """Group live GPU nodes by domain. Caller must hold self._lock."""
+        slices: Dict[str, dict] = {}
+        for info in self._nodes.values():
+            if not info["alive"] or not info.get("gpu_domain"):
+                continue
+            gd = info["gpu_domain"]
+            s = slices.setdefault(gd["slice_id"], {
+                "slice_id": gd["slice_id"],
+                "accelerator_type": gd["accelerator_type"],
+                "generation": gd["generation"],
+                "num_hosts": gd["num_hosts"],
+                "gpus_per_host": gd.get("gpus_per_host"),
+                "hosts": [],
+            })
+            s["hosts"].append(info)
+        for s in slices.values():
+            s["hosts"].sort(key=lambda n: n["gpu_domain"]["worker_id"])
+            # Complete when ranks 0..num_hosts-1 each registered once: hosts
+            # that share a name but not a rank order (two that each call
+            # themselves rank 0) are not one domain.
+            ranks = [n["gpu_domain"]["worker_id"] for n in s["hosts"]]
+            s["complete"] = ranks == list(range(s["num_hosts"]))
+        return slices
+
+    def rpc_get_slices(self) -> List[dict]:
+        with self._lock:
+            return [{
+                "slice_id": s["slice_id"],
+                "accelerator_type": s["accelerator_type"],
+                "generation": s["generation"],
+                "num_hosts": s["num_hosts"],
+                "gpus_per_host": s["gpus_per_host"],
+                "registered_hosts": len(s["hosts"]),
+                "complete": s["complete"],
+                "node_ids": [n["node_id"] for n in s["hosts"]],
+            } for s in self._slice_view().values()]
 
     def rpc_heartbeat(self, node_id: bytes,
                       resources_available: Dict[str, float],
@@ -490,6 +549,7 @@ class Conductor:
             for pg in self._pgs.values():
                 if pg.state == "CREATED" and node_id in pg.bundle_nodes:
                     pg.state = "PENDING"
+                    pg.slice_id = None
                     pg.bundle_nodes = [
                         None if n == node_id else n for n in pg.bundle_nodes]
             self._cv.notify_all()
@@ -957,6 +1017,18 @@ class Conductor:
                     return dict(info)
                 return None if not strategy.get("soft") else self._best_fit(
                     resources)
+            if isinstance(strategy, dict) and strategy.get("type") == "slice":
+                # Constrain the candidate set to hosts of complete domains
+                # matching the requested topology, then best-fit within it.
+                topo = strategy.get("topology") or ""
+                candidates: List[dict] = []
+                for s in self._slice_view().values():
+                    if not s["complete"]:
+                        continue
+                    if topo and s["accelerator_type"] != topo:
+                        continue
+                    candidates.extend(s["hosts"])
+                return self._best_fit(resources, candidates)
             return self._best_fit(resources)
 
     def _best_fit(self, resources: Dict[str, float],
@@ -1221,12 +1293,15 @@ class Conductor:
     # ------------------------------------------------------------------
     def rpc_create_placement_group(self, pg_id: bytes,
                                    bundles: List[Dict[str, float]],
-                                   strategy: str, name: str = "") -> None:
-        pg = PlacementGroupInfo(pg_id, bundles, strategy, name)
+                                   strategy: str, name: str = "",
+                                   slice_topology: str = "") -> None:
+        pg = PlacementGroupInfo(pg_id, bundles, strategy, name,
+                                slice_topology=slice_topology)
         with self._lock:
             self._pgs[pg_id] = pg
             self._log("pg", {"pg_id": pg_id, "bundles": bundles,
-                             "strategy": strategy, "name": name})
+                             "strategy": strategy, "name": name,
+                             "slice_topology": slice_topology})
         self._try_place_pg(pg)
 
     def _try_place_pg(self, pg: PlacementGroupInfo) -> None:
@@ -1241,10 +1316,11 @@ class Conductor:
             pg.placing = True
             live = [dict(v) for v in self._nodes.values() if v["alive"]]
         try:
-            plan = self._plan_bundles(pg, live)
-            if plan is None:
+            planned = self._plan_bundles(pg, live)
+            if planned is None:
                 self._schedule_pg_retry(pg)
                 return
+            plan, slice_id = planned
             prepared: List[Tuple[bytes, str, int]] = []
             ok = True
             for idx, node in enumerate(plan):
@@ -1272,10 +1348,12 @@ class Conductor:
                         removed = True  # raced remove: roll back below
                     else:
                         pg.bundle_nodes = [n["node_id"] for n in plan]
+                        pg.slice_id = slice_id
                         pg.state = "CREATED"
                         self._log("pg_state", {
                             "pg_id": pg.pg_id, "state": pg.state,
-                            "bundle_nodes": pg.bundle_nodes})
+                            "bundle_nodes": pg.bundle_nodes,
+                            "slice_id": pg.slice_id})
                         self._cv.notify_all()
             if not ok or removed:
                 for _, addr, idx in prepared:
@@ -1305,11 +1383,13 @@ class Conductor:
 
         threading.Timer(0.5, fire).start()
 
-    def _plan_bundles(self, pg: PlacementGroupInfo,
-                      live: List[dict]) -> Optional[List[dict]]:
-        """STRICT_PACK: all on one node. PACK: prefer few nodes. SPREAD:
-        round-robin distinct nodes. STRICT_SPREAD: distinct node per bundle.
-        Bundle feasibility is checked against available resources."""
+    def _plan_bundles(self, pg: PlacementGroupInfo, live: List[dict]
+                      ) -> Optional[Tuple[List[dict], Optional[str]]]:
+        """The nodes for ``pg``'s bundles and, for SLICE, the domain they
+        are on (None otherwise); None when they do not fit. STRICT_PACK: all
+        on one node. PACK: prefer few nodes. SPREAD: round-robin distinct
+        nodes. STRICT_SPREAD: distinct node per bundle. Bundle feasibility
+        is checked against available resources."""
         def fits(avail, res):
             return all(avail.get(k, 0.0) + 1e-9 >= v for k, v in res.items())
 
@@ -1321,6 +1401,28 @@ class Conductor:
                 avail[nid][k] = avail[nid].get(k, 0.0) - v
 
         plan: List[dict] = []
+        if pg.strategy == "SLICE":
+            # NVLink contiguity: every bundle lands on hosts of ONE complete
+            # domain, in the hosts' worker_id order, each host filled up to
+            # its share of the domain's cards before the next (so rank order
+            # follows the domain's host order). A request no single domain
+            # can hold is refused (stays PENDING) rather than spread across
+            # domains, whose cards would meet over the network.
+            with self._lock:
+                slices = self._slice_view()
+            for s in sorted(slices.values(), key=lambda s: s["slice_id"]):
+                if not s["complete"]:
+                    continue
+                if pg.slice_topology and \
+                        s["accelerator_type"] != pg.slice_topology:
+                    continue
+                chosen = self._fill_domain(s, pg.bundles, avail, fits, take)
+                if chosen is not None:
+                    return [by_id[nid] for nid in chosen], s["slice_id"]
+                # restore tentative takes before trying the next domain
+                avail.update({n["node_id"]: dict(n["resources_available"])
+                              for n in live})
+            return None
         if pg.strategy in ("STRICT_PACK", "PACK"):
             order = sorted(live, key=lambda n: -sum(
                 n["resources_available"].get(k, 0.0) for k in ("CPU", "GPU")))
@@ -1328,7 +1430,7 @@ class Conductor:
                 for n in order:
                     a = dict(avail[n["node_id"]])
                     if all(fits_and_take(a, b) for b in pg.bundles):
-                        return [n] * len(pg.bundles)
+                        return [n] * len(pg.bundles), None
                 return None
             for b in pg.bundles:
                 placed = False
@@ -1341,7 +1443,7 @@ class Conductor:
                         break
                 if not placed:
                     return None
-            return plan
+            return plan, None
         # SPREAD / STRICT_SPREAD
         used: Set[bytes] = set()
         for b in pg.bundles:
@@ -1361,7 +1463,45 @@ class Conductor:
                     break
             if not placed:
                 return None
-        return plan
+        return plan, None
+
+    @staticmethod
+    def _fill_domain(s: dict, bundles: List[Dict[str, float]],
+                     avail: Dict[bytes, Dict[str, float]], fits, take
+                     ) -> Optional[List[bytes]]:
+        """Node ids for ``bundles`` on domain ``s``'s hosts, or None. With a
+        bundle a host, bundle i goes to the rank-i host (the JAX rule).
+        Else a host takes bundles while they fit and its cards in this gang
+        stay within its share of the domain (``gpus_per_host``); then the
+        next host."""
+        hosts = [n["node_id"] for n in s["hosts"]]
+        share = s.get("gpus_per_host")
+
+        def within(gpus):
+            return not share or gpus <= share + 1e-9
+
+        if len(bundles) == len(hosts):
+            for nid, b in zip(hosts, bundles):
+                if not (fits(avail.get(nid, {}), b)
+                        and within(b.get("GPU", 0.0))):
+                    return None
+                take(nid, b)
+            return hosts
+        chosen: List[bytes] = []
+        h, used = 0, 0.0
+        for b in bundles:
+            while h < len(hosts):
+                nid = hosts[h]
+                gpus = b.get("GPU", 0.0)
+                if fits(avail.get(nid, {}), b) and within(used + gpus):
+                    take(nid, b)
+                    used += gpus
+                    chosen.append(nid)
+                    break
+                h, used = h + 1, 0.0
+            else:
+                return None
+        return chosen
 
     def rpc_pg_ready(self, pg_id: bytes, timeout: float = 0.0) -> dict:
         deadline = time.monotonic() + timeout
@@ -1372,11 +1512,13 @@ class Conductor:
                     return {"state": "UNKNOWN"}
                 if pg.state == "CREATED" or timeout <= 0:
                     return {"state": pg.state,
-                            "bundle_nodes": list(pg.bundle_nodes)}
+                            "bundle_nodes": list(pg.bundle_nodes),
+                            "slice_id": pg.slice_id}
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
                     return {"state": pg.state,
-                            "bundle_nodes": list(pg.bundle_nodes)}
+                            "bundle_nodes": list(pg.bundle_nodes),
+                            "slice_id": pg.slice_id}
                 self._cv.wait(min(remaining, 1.0))
 
     def rpc_remove_placement_group(self, pg_id: bytes) -> None:
@@ -1400,6 +1542,7 @@ class Conductor:
         with self._lock:
             return [{"pg_id": pg.pg_id.hex(), "state": pg.state,
                      "strategy": pg.strategy, "name": pg.name,
+                     "slice_id": pg.slice_id,
                      "bundles": pg.bundles} for pg in self._pgs.values()]
 
     # ------------------------------------------------------------------

@@ -21,8 +21,10 @@ zygote, runs with ``CUDA_VISIBLE_DEVICES=""``, which is in their
 environment before anything touches CUDA. Workers are pooled under their
 environment key plus their card indices, so a worker whose CUDA is
 initialised only ever serves leases on the same cards, and GPU workers
-are spawned, never forked from the zygote. No TPU slice membership (the
-JAX daemon's ``tpu_slice`` and ``detect_slice``).
+are spawned, never forked from the zygote. In place of the JAX daemon's
+TPU slice (``tpu_slice``, ``detect_slice``), a node with cards reports its
+NVLink domain (``gpu_domain``, ``gpu/topology.py:detect_domain``) at
+registration, for the conductor's ``SLICE`` gang placement.
 """
 
 from __future__ import annotations
@@ -179,7 +181,8 @@ class NodeDaemon:
                  object_store_bytes: Optional[int] = None,
                  is_head: bool = False,
                  session_dir: Optional[str] = None,
-                 env_vars: Optional[Dict[str, str]] = None):
+                 env_vars: Optional[Dict[str, str]] = None,
+                 gpu_domain: Optional[dict] = None):
         from ray_tpu_torch.core.ids import NodeID
         self.node_id = NodeID.from_random().binary()
         self.conductor_address = conductor_address
@@ -189,6 +192,21 @@ class NodeDaemon:
             import multiprocessing
             resources = {"CPU": float(multiprocessing.cpu_count())}
         resources = dict(resources)
+        # Domain membership: advertised to the conductor so SLICE placement
+        # groups land on the hosts of one NVLink domain.
+        if gpu_domain is None and resources.get("GPU", 0) > 0:
+            try:
+                from ray_tpu_torch.gpu.topology import detect_domain
+                gpu_domain = detect_domain()
+            except Exception:
+                gpu_domain = None
+        self.gpu_domain = gpu_domain
+        if gpu_domain is not None:
+            # Typed per-generation resource next to the generic GPU count
+            # (lets tasks target a generation, gpu_resources() role). Added
+            # before total/_avail split so it is actually leasable.
+            gen_key = f"GPU-{gpu_domain['generation']}"
+            resources.setdefault(gen_key, resources.get("GPU", 0.0))
         self.total_resources = dict(resources)
         self._avail = dict(resources)
         # The free share of each card (1.0: untouched).
@@ -273,7 +291,7 @@ class NodeDaemon:
         reg = get_client(conductor_address).call(
             "register_node", node_id=self.node_id, address=self.address,
             resources=self.total_resources, store_socket=self.store_socket,
-            is_head=is_head)
+            is_head=is_head, gpu_domain=self.gpu_domain)
         self._conductor_epoch = (reg or {}).get("epoch")
         # Flight recorder: the daemon ships its ring delta piggybacked on
         # the heartbeat (no second periodic conductor connection). In head
@@ -529,7 +547,7 @@ class NodeDaemon:
                         address=self.address,
                         resources=self.total_resources,
                         store_socket=self.store_socket,
-                        is_head=self.is_head)
+                        is_head=self.is_head, gpu_domain=self.gpu_domain)
                     oids = self.store.list_objects()
                     if oids:
                         cli.call("add_object_locations", oids=oids,

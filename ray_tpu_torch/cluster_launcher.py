@@ -12,13 +12,17 @@ Spec schema (subset):
 
     cluster_name: demo
     provider:
-      type: fake
+      type: fake | gce_gpu
+      project: my-proj          # gce_gpu
+      zone: us-central1-a       # gce_gpu
     head:
       port: 6380                # 0: any free port
       resources: {"CPU": 4}     # exactly the head's; no "GPU", no card
       dashboard_port: 8265      # optional, -1 disables
     node_types:
       gpu_worker:
+        accelerator_type: h100-8          # gce_gpu: an NVLink domain
+        machine_type: a3-highgpu-8g       # gce_gpu: its hosts' VMs
         resources: {"CPU": 8, "GPU": 1}
         min_workers: 0
         max_workers: 4
@@ -30,10 +34,10 @@ Where the port differs from the JAX launcher:
 - A spec whose text is JSON (which YAML reads too) is parsed with ``json``;
   any other spec needs PyYAML, imported in ``load_config`` only, and a
   missing PyYAML raises ``ImportError`` naming it.
-- ``provider.type: gcp_tpu`` (TPU VMs through ``gcloud``) raises
-  ``NotImplementedError``: a GPU-VM provider is still to design
-  (ROADMAP.md A.5(d)). ``fake`` starts each node as a node daemon in the
-  head session process.
+- ``provider.type: gce_gpu`` (GPU VMs through ``gcloud``,
+  ``autoscaler/gce.py``) takes the place of ``gcp_tpu`` (TPU VMs), which
+  raises ``NotImplementedError`` naming it. ``fake`` starts each node as a
+  node daemon in the head session process.
 - The state file is ``rtpt-launcher-<cluster_name>.json`` under
   ``tempfile.gettempdir()``, where the JAX launcher keeps
   ``/tmp/ray_tpu/launcher-<name>.json``, and each head session gets a fresh
@@ -92,9 +96,19 @@ def _check_provider(cfg: dict, path: str) -> None:
     ptype = cfg["provider"].get("type", "fake")
     if ptype == "gcp_tpu":
         raise NotImplementedError(
-            f"{path}: provider type 'gcp_tpu' (TPU VMs) has no counterpart "
-            "in the port yet; a GPU-VM provider is queued in ROADMAP.md "
-            "A.5(d). Use provider type 'fake'")
+            f"{path}: provider type 'gcp_tpu' creates TPU VMs, which the "
+            "port has no use for; its GPU-VM provider is 'gce_gpu' "
+            "(ROADMAP.md A.5(d)), or use 'fake'")
+    if ptype == "gce_gpu":
+        from ray_tpu_torch.gpu.topology import DomainSpec
+        for tname, tcfg in cfg.get("node_types", {}).items():
+            missing = [k for k in ("accelerator_type", "machine_type")
+                       if k not in tcfg]
+            if missing:
+                raise ValueError(f"{path}: gce_gpu node type {tname!r} "
+                                 f"needs {missing}")
+            DomainSpec.parse(tcfg["accelerator_type"])
+        return
     if ptype != "fake":
         raise ValueError(f"unknown provider type {ptype!r}")
 
@@ -121,8 +135,16 @@ def _read_state(cluster_name: str) -> Optional[dict]:
 
 
 def _build_provider(cfg: dict, conductor_address: str):
+    node_types = cfg.get("node_types", {})
+    if cfg["provider"].get("type", "fake") == "gce_gpu":
+        from ray_tpu_torch.autoscaler.gce import GceGpuNodeProvider
+        return GceGpuNodeProvider(
+            conductor_address, node_types,
+            cluster_name=cfg["cluster_name"],
+            project=cfg["provider"].get("project", ""),
+            zone=cfg["provider"].get("zone", ""))
     from ray_tpu_torch.autoscaler.autoscaler import FakeNodeProvider
-    return FakeNodeProvider(conductor_address, cfg.get("node_types", {}))
+    return FakeNodeProvider(conductor_address, node_types)
 
 
 # ---------------------------------------------------------------------------

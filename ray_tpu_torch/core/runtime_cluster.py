@@ -1132,6 +1132,24 @@ class ClusterRuntime:
                 targets.append(addr)
             if not addr and not strategy.get("soft"):
                 return []
+        elif isinstance(strategy, dict) and strategy.get("type") == "slice":
+            # Candidates are hosts of complete NVLink domains of the
+            # requested topology — never arbitrary nodes (a domain task must
+            # be able to reach its gang over NVLink).
+            topo = strategy.get("topology") or ""
+            try:
+                slices = self.conductor.call("get_slices")
+            except Exception:
+                slices = []
+            wanted = {nid for s in slices
+                      if s["complete"] and
+                      (not topo or s["accelerator_type"] == topo)
+                      for nid in s["node_ids"]}
+            for n in self.conductor.call("get_nodes"):
+                if n["alive"] and n["node_id"] in wanted:
+                    targets.append(n["address"])
+            if not targets:
+                return []
         if not targets:
             targets = [self.daemon_address]
             nodes = sorted(
@@ -1459,6 +1477,17 @@ class ClusterRuntime:
             return None
         if isinstance(strategy, dict):
             return strategy
+        # SliceSchedulingStrategy: pin to one NVLink domain; with an explicit
+        # backing placement group it degrades to the PG path (the PG itself
+        # was domain-placed), otherwise the conductor constrains candidates
+        # to complete-domain hosts ({"type": "slice"}).
+        if hasattr(strategy, "topology"):
+            pg = getattr(strategy, "placement_group", None)
+            if pg is not None:
+                return {"type": "pg", "pg_id": pg.id.binary(),
+                        "bundle_index": getattr(
+                            strategy, "placement_group_bundle_index", 0) or 0}
+            return {"type": "slice", "topology": strategy.topology}
         # PlacementGroupSchedulingStrategy / NodeAffinitySchedulingStrategy
         if hasattr(strategy, "placement_group"):
             pg = strategy.placement_group
@@ -1877,9 +1906,11 @@ class ClusterRuntime:
     # ------------------------------------------------------------------
     def create_placement_group(self, pg_id: bytes,
                                bundles: List[Dict[str, float]],
-                               strategy: str, name: str = "") -> None:
+                               strategy: str, name: str = "",
+                               slice_topology: str = "") -> None:
         self.conductor.call("create_placement_group", pg_id=pg_id,
-                            bundles=bundles, strategy=strategy, name=name)
+                            bundles=bundles, strategy=strategy, name=name,
+                            slice_topology=slice_topology)
 
     def pg_ready(self, pg_id: bytes, timeout: float = 0.0) -> dict:
         return self.conductor.call("pg_ready", pg_id=pg_id, timeout=timeout)

@@ -27,17 +27,29 @@ def _repeat_kv(k, v, heads: int):
 
 
 def attention_reference(q, k, v, *, causal: bool = True,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None,
+                        segment_ids=None):
     """Plain softmax attention. q,k,v: [B, S, H, D] (k/v may have fewer heads
-    for GQA — heads must divide evenly)."""
+    for GQA — heads must divide evenly).
+
+    ``segment_ids=(seg_q [B, Sq], seg_k [B, Sk])`` masks packed sequences: a
+    query sees only keys of its own segment (ANDed with the causal mask). A
+    row masked everywhere softmaxes over ``NEG_INF`` alone, so it averages
+    every value uniformly, as the JAX function does; it is not zeroed."""
     sq, hq, d = q.shape[1], q.shape[2], q.shape[3]
     sk = k.shape[1]
     k, v = _repeat_kv(k, v, hq)
     scale = scale if scale is not None else d ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = None
     if causal:
         mask = torch.ones(sq, sk, dtype=torch.bool,
                           device=q.device).tril(sk - sq)
+    if segment_ids is not None:
+        seg_q, seg_k = segment_ids
+        seg_mask = (seg_q[:, :, None] == seg_k[:, None, :])[:, None]
+        mask = seg_mask if mask is None else (mask & seg_mask)
+    if mask is not None:
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)

@@ -146,18 +146,21 @@ class TrainingFailedError(RuntimeError):
 class BackendExecutor:
     def __init__(self, backend: Backend, num_workers: int,
                  resources_per_worker: dict,
-                 placement_strategy: str = "PACK"):
+                 placement_strategy: str = "PACK",
+                 slice_topology: str = ""):
         self.backend = backend
         self.num_workers = num_workers
         self.resources_per_worker = resources_per_worker
         self.placement_strategy = placement_strategy
+        self.slice_topology = slice_topology
         self.worker_group: Optional[WorkerGroup] = None
 
     def start(self, ready_timeout: float = 120.0) -> None:
         try:
             self.worker_group = WorkerGroup(
                 self.num_workers, self.resources_per_worker,
-                self.placement_strategy, ready_timeout=ready_timeout)
+                self.placement_strategy, slice_topology=self.slice_topology,
+                ready_timeout=ready_timeout)
             self.backend.on_start(self.worker_group)
         except ValueError:
             raise                 # a configuration error: no retry helps

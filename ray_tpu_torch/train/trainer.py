@@ -209,7 +209,8 @@ class DataParallelTrainer(BaseTrainer):
             executor = BackendExecutor(
                 self.backend, num_workers,
                 self.scaling_config.worker_resources(),
-                self.scaling_config.placement_strategy)
+                self.scaling_config.placement_strategy,
+                slice_topology=self.scaling_config.topology)
             state = {"last_metrics": {}, "last_checkpoint":
                      self.resume_from_checkpoint, "history": []}
 

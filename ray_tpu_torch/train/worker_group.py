@@ -11,8 +11,10 @@ Where the port differs from the JAX module:
 
 - A worker takes its cards from its bundle (``num_gpus``): the node daemon
   leases it whole cards under ``CUDA_VISIBLE_DEVICES``, so the worker's
-  card is ``cuda:0`` (``torch_utils.get_device``). There is no ``SLICE``
-  gang: the port has no slice placement.
+  card is ``cuda:0`` (``torch_utils.get_device``). A ``slice_topology``
+  gang is placed with ``SLICE`` on the hosts of one NVLink domain, one rank
+  a card share in the domain's host order, where the JAX gang is one rank
+  a slice host.
 - The in-process runtime (``init(local_mode=True)``) runs actors as
   threads of one process, which holds one ``torch.distributed`` group: a
   gang of more than one rank raises ``ValueError`` that names
@@ -137,7 +139,7 @@ class WorkerGroup:
     """Driver-side handle over the gang (parity: worker_group.py:92)."""
 
     def __init__(self, num_workers: int, resources_per_worker: Dict[str, float],
-                 placement_strategy: str = "PACK",
+                 placement_strategy: str = "PACK", slice_topology: str = "",
                  ready_timeout: float = 120.0):
         import ray_tpu_torch as rt
         from ray_tpu_torch.util.placement_group import placement_group
@@ -157,7 +159,14 @@ class WorkerGroup:
             if not in_process_runtime():
                 bundles = [dict(resources_per_worker)
                            for _ in range(num_workers)]
-                self.pg = placement_group(bundles, strategy=placement_strategy)
+                if slice_topology:
+                    # domain gang: ranks in the domain's host order, so the
+                    # NCCL ranks' collectives stay on its NVLink
+                    self.pg = placement_group(bundles, strategy="SLICE",
+                                              slice_topology=slice_topology)
+                else:
+                    self.pg = placement_group(bundles,
+                                              strategy=placement_strategy)
                 self.pg.ready(timeout=ready_timeout)
             cls = rt.remote(RayTrainWorker)
             for rank in range(num_workers):

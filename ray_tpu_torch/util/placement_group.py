@@ -7,12 +7,14 @@ through ``ClusterRuntime.create_placement_group``, ``pg_ready`` and
 ``remove_placement_group``. A bundle may hold ``"GPU"``: a worker placed in
 it leases whole cards or shares of one as any other (``num_gpus``).
 
-Where the port differs from the JAX module: the strategies are ``PACK``,
-``SPREAD``, ``STRICT_PACK`` and ``STRICT_SPREAD``. ``"SLICE"`` (and its
-``slice_topology``) gang-places on the hosts of one TPU ICI slice; the port
-has no slice placement, so it raises ``ValueError``. Placement groups need
-the cluster runtime (``init(address=...)``): the in-process runtime has no
-bundles to reserve, and ``placement_group`` raises ``ValueError`` there.
+Where the port differs from the JAX module: ``"SLICE"`` gang-places on the
+hosts of one NVLink domain (``gpu/topology.py``), not of one TPU ICI slice,
+and ``slice_topology`` names a domain type such as ``"h100-8"``. A bundle is
+a rank's share (one card, say), so several bundles may share a host: the
+conductor fills the domain's hosts in order (``cluster/conductor.py``).
+Placement groups need the cluster runtime (``init(address=...)``): the
+in-process runtime has no bundles to reserve, and ``placement_group`` raises
+``ValueError`` there.
 """
 
 from __future__ import annotations
@@ -23,17 +25,19 @@ from typing import Dict, List, Optional
 from ray_tpu_torch.core.exceptions import GetTimeoutError
 from ray_tpu_torch.core.ids import PlacementGroupID
 
-VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD")
+VALID_STRATEGIES = ("PACK", "SPREAD", "STRICT_PACK", "STRICT_SPREAD",
+                    "SLICE")
 
 
 class PlacementGroup:
     def __init__(self, pg_id: PlacementGroupID,
                  bundles: List[Dict[str, float]], strategy: str,
-                 name: str = ""):
+                 name: str = "", slice_topology: str = ""):
         self.id = pg_id
         self.bundle_specs = bundles
         self.strategy = strategy
         self.name = name
+        self.slice_topology = slice_topology
 
     def ready(self, timeout: Optional[float] = None):
         """Block until all bundles are reserved; returns self (the reference
@@ -64,7 +68,7 @@ class PlacementGroup:
 
     def __reduce__(self):
         return (PlacementGroup, (self.id, self.bundle_specs, self.strategy,
-                                 self.name))
+                                 self.name, self.slice_topology))
 
 
 def _cluster_runtime():
@@ -80,13 +84,13 @@ def _cluster_runtime():
 
 def placement_group(bundles: List[Dict[str, float]],
                     strategy: str = "PACK", name: str = "",
-                    lifetime: Optional[str] = None) -> PlacementGroup:
-    """Reserve bundles across the cluster under ``strategy``."""
-    if strategy == "SLICE":
-        raise ValueError(
-            "strategy 'SLICE' places a gang on one TPU ICI slice; the port "
-            "has no slice placement (use PACK, SPREAD, STRICT_PACK or "
-            "STRICT_SPREAD)")
+                    lifetime: Optional[str] = None,
+                    slice_topology: str = "") -> PlacementGroup:
+    """Reserve bundles across the cluster under ``strategy``.
+    strategy="SLICE" gang-places all bundles on the hosts of ONE NVLink
+    domain, in its hosts' order (with a bundle a host, bundle i on the
+    domain's rank-i host); ``slice_topology`` ("h100-8") restricts which
+    domains qualify."""
     if strategy not in VALID_STRATEGIES:
         raise ValueError(f"Invalid strategy {strategy!r}; "
                          f"one of {VALID_STRATEGIES}")
@@ -98,8 +102,9 @@ def placement_group(bundles: List[Dict[str, float]],
             raise ValueError("bundle resources must be non-negative")
     rt = _cluster_runtime()
     pg_id = PlacementGroupID.from_random()
-    rt.create_placement_group(pg_id.binary(), bundles, strategy, name)
-    return PlacementGroup(pg_id, bundles, strategy, name)
+    rt.create_placement_group(pg_id.binary(), bundles, strategy, name,
+                              slice_topology=slice_topology)
+    return PlacementGroup(pg_id, bundles, strategy, name, slice_topology)
 
 
 def remove_placement_group(pg: PlacementGroup) -> None:

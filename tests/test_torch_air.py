@@ -205,7 +205,8 @@ def test_scaling_config_gpu_rules():
         .worker_resources() == {"CPU": 1.0, "GPU": 2.0}
     assert tconfig.ScalingConfig(gpus_per_worker=0.5) \
         .worker_resources()["GPU"] == 0.5
-    with pytest.raises(ValueError, match="slice placement"):
+    # a TPU slice name is no GPU domain type
+    with pytest.raises(ValueError, match="Bad accelerator type 'v4-8'"):
         tconfig.ScalingConfig(topology="v4-8")
     with pytest.raises(ValueError, match="holds no card"):
         tconfig.ScalingConfig(use_gpu=False, gpus_per_worker=1)

@@ -11,8 +11,9 @@ run on a two-node JAX ``Cluster`` (``_once``: the xdist workers share one
 pickle), each test runs its program on this module's two-node port cluster
 and compares: values must be equal (the reductions run in numpy on the
 same inputs in both). Then the port's own rules: a torch tensor goes to
-the host and comes back numpy, bfloat16 is refused, ``"SLICE"`` and the
-in-process runtime are refused, and a bundle's card reaches its worker.
+the host and comes back numpy, bfloat16 is refused, a ``"SLICE"`` gang
+with no NVLink domain stays pending, the in-process runtime is refused,
+and a bundle's card reaches its worker.
 
 The actor class and functions here are module-level: the port's workers
 import this module by name (so it imports no JAX at the top), the JAX
@@ -355,8 +356,14 @@ def test_bfloat16_is_refused():
 
 
 def test_slice_strategy_is_refused(cluster):
-    with pytest.raises(ValueError, match="slice"):
-        placement_group([{"CPU": 1}], strategy="SLICE")
+    """A SLICE gang on a cluster that reports no NVLink domain is refused
+    placement: it stays PENDING, never spread over plain nodes."""
+    pg = placement_group([{"CPU": 1}], strategy="SLICE")
+    assert not pg.wait(timeout_seconds=1.0)
+    row = next(p for p in placement_group_table()
+               if p["pg_id"] == pg.id.hex())
+    assert (row["state"], row["slice_id"]) == ("PENDING", None)
+    remove_placement_group(pg)
     with pytest.raises(ValueError, match="Invalid strategy"):
         placement_group([{"CPU": 1}], strategy="RANDOM")
 

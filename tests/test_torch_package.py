@@ -38,6 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _port_files():
     files = sorted((REPO / "ray_tpu_torch").rglob("*.py"))
+    files.extend(sorted((REPO / "examples_torch").glob("*.py")))
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "chip_import_probe.py")
     return files
@@ -445,6 +446,22 @@ def test_import_walk_covers_the_tools_and_tune():
     assert not missing, missing
 
 
+_LAST_MODULES = (
+    "ray_tpu_torch/gpu/topology.py", "ray_tpu_torch/autoscaler/gce.py",
+    "ray_tpu_torch/util/scheduling_strategies.py",
+    "ray_tpu_torch/util/placement_group.py", "ray_tpu_torch/air/config.py",
+    "ray_tpu_torch/client/server.py", "ray_tpu_torch/ops/attention.py",
+    *(f"examples_torch/{n}.py" for n in (
+        "01_core_api", "02_train_lm_multichip", "03_serve_lm",
+        "04_data_pipeline", "05_rl_cartpole")))
+
+
+def test_import_walk_covers_the_last_modules_and_the_examples():
+    names = {str(p.relative_to(REPO)) for p in _port_files()}
+    missing = [m for m in _LAST_MODULES if m not in names]
+    assert not missing, missing
+
+
 def test_import_walk_covers_the_cluster_runtime():
     names = {str(p.relative_to(REPO)) for p in _port_files()}
     missing = [m for m in _CLUSTER_MODULES if m not in names]
@@ -486,7 +503,8 @@ def _fresh(body):
     "ray_tpu_torch.util.joblib_backend", "ray_tpu_torch.devtools.rtcheck",
     "ray_tpu_torch.devtools.rtcheck.checkers",
     "ray_tpu_torch.cluster.microbench", "ray_tpu_torch.tune",
-    "ray_tpu_torch.tune.tuner"])
+    "ray_tpu_torch.tune.tuner", "ray_tpu_torch.autoscaler.gce",
+    "ray_tpu_torch.gpu.topology"])
 def test_cluster_modules_load_no_jax_ray_tpu_or_cloudpickle(module):
     """A fresh interpreter: the test process itself has JAX loaded."""
     out = _fresh(f"import {module}")

@@ -125,10 +125,10 @@ def case_placement_group_listing(pkg, api, tmp):
     pg.ready(timeout=20)
     pgs = state.list_placement_groups()
     util.remove_placement_group(pg)
-    # a JAX row also names its TPU slice; the port has no slice placement
-    # (ROADMAP.md C, "GPUs, not TPUs")
+    # a row names its gang's slice: a TPU slice in JAX, an NVLink domain in
+    # the port
     return {"listed": sum(p["name"] == "statepg" for p in pgs),
-            "keys": [k for k in _keys(pgs) if k != "slice_id"]}
+            "keys": _keys(pgs)}
 
 
 def case_profile_worker_via_state_api(pkg, api, tmp):
