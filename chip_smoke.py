@@ -38,11 +38,21 @@ that of every process it starts, under ``build/pycache`` (``_keep_bytecode``).
 3. Serving at full width: the flagship LM (vocab 32768, d_model 2048, 10
    layers, 16 heads, head_dim 128, d_ff 8192, tied embeddings; random
    weights from a seed) answers a batch of 8 prompts of 128 tokens with 256
-   greedy tokens through ``generate``. The kernel must launch once per layer
-   (the prefill). The prefill's last-position logits are held against the
-   plain attention path; time to first token, decode ms a step, and the
-   card's busy share and kernels a decode step (torch.profiler). Then a
-   small model's logits on the card against the CPU.
+   greedy tokens through ``generate``, whose decode steps replay one CUDA
+   graph (captured once a call), and through the eager loop
+   (``_generate_eager``, one eager ``decode_step`` a token), in turns
+   (graph, eager, graph). The kernel must launch once per layer (the
+   prefill) on both paths and the graph replay once a decode step; the
+   graph's tokens equal the eager loop's over the first 32 columns, and a
+   sampled run's 16 tokens equal the eager loop's for the same seed. One
+   eager decode step runs under CUDA's sync debug mode "error" (no device
+   value read on the host), greedy and sampled. The prefill's
+   last-position logits are held against the plain attention path; time to
+   first token, the capture's seconds, and for both paths tokens/s, decode
+   ms a step, the card's busy share and kernels a decode step
+   (torch.profiler). Then a small f32 model on the card against the CPU:
+   its prefill logits and cache, and 16 tokens of the card's graph path
+   against the CPU's eager loop (tokens equal, cache within tolerance).
 4. Long prefill: batch 2 at S = 2048 (max_seq) through the kernel, against
    the plain path.
 5. Training at full width: the flagship (bench.py's bench_lm configuration,
@@ -474,6 +484,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
@@ -987,11 +998,49 @@ def _routing_flips(got, want, layers):
                         zip(got[:layers], want[:layers])])
 
 
+SERVE_HELD = 32   # leading columns the graph's tokens must equal the eager's
+SAMPLED_NEW = 16  # a sampled run's tokens, graph against eager
+
+
+def _tgen():
+    # the package exports a function named `generate`, hiding the module
+    return importlib.import_module("ray_tpu_torch.models.generate")
+
+
+def _check_no_host_sync(params, prompt, cfg, tag):
+    """One eager decode step, the function the graph captures, greedy and
+    sampled, under CUDA's sync debug mode "error": no operation of the step
+    may read a device value on the host."""
+    tgen = _tgen()
+    icfg = tgen._inference_cfg(cfg)
+    errors = {}
+    with torch.inference_mode():
+        p16 = tgen._cast_params(params, icfg.dtype)
+        for temperature in (0.0, 0.8):
+            state, gen = tgen._start(p16, prompt, icfg, 2, temperature, 50,
+                                     0, torch.device("cuda"))
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                tgen._step(p16, icfg, state, gen, temperature, 50)
+            except RuntimeError as e:
+                errors[temperature] = str(e).splitlines()[0]
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+    print(f"[{tag}] an eager decode step under sync debug mode 'error' "
+          f"(greedy, sampled): {errors or 'no host sync'}", flush=True)
+    check(not errors, f"{tag}: a decode step reads the device on the host: "
+          f"{errors}")
+
+
 def phase_serving(card, cfg, tag, seed):
     """Serve 8 prompts of 128 tokens with 256 greedy tokens each through
-    ``generate``; ``tag`` names the path in the output and the counts."""
-    from ray_tpu_torch.models import generate, transformer_init
+    ``generate`` (the decode graph) and the eager loop, in turns; ``tag``
+    names the path in the output and the counts."""
+    from ray_tpu_torch.models import transformer_init
     from ray_tpu_torch.models import transformer_num_params
+    tgen = _tgen()
     batch, prompt_len, new = 8, 128, 256
     params = transformer_init(torch.Generator(device="cuda").manual_seed(
         seed), cfg)
@@ -1000,25 +1049,66 @@ def phase_serving(card, cfg, tag, seed):
     print(f"[{tag}] params={transformer_num_params(cfg)} "
           f"experts={cfg.num_experts} top_k={cfg.expert_top_k} "
           f"batch={batch} prompt={prompt_len} new={new}", flush=True)
-    generate(params, prompt, cfg, max_new_tokens=4)   # warm-up
+    tgen.generate(params, prompt, cfg, max_new_tokens=4)   # warm-up
+    tgen._generate_eager(params, prompt, cfg, max_new_tokens=4)
     torch.cuda.synchronize()
+    _check_no_host_sync(params, prompt, cfg, tag)
 
-    _reset_launch_counts()
-    t0 = time.perf_counter()
-    tokens = generate(params, prompt, cfg, max_new_tokens=new)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _launch_counts()
-    check(launches == (cfg.n_layers, 0, 0, 0),
-          f"{tag}: kernels launched {launches} times (fwd, dkv, dq, delta), "
-          f"want ({cfg.n_layers}, 0, 0, 0)")
-    check(tokens.shape == (batch, new), f"tokens shape {tuple(tokens.shape)}")
-    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-          "token out of range")
-    tokens_per_s = batch * new / seconds
-    print(f"[{tag}] generate: {tokens_per_s:.1f} tokens/s "
-          f"({seconds:.3f} s for {batch}x{new} greedy tokens; "
-          f"flash launches={launches[0]}) on {card}", flush=True)
+    turns = []
+    for path in ("graph", "eager", "graph"):
+        _reset_launch_counts()
+        captures, replays = tgen.graph_captures, tgen.graph_replays
+        t0 = time.perf_counter()
+        if path == "graph":
+            tokens = tgen.generate(params, prompt, cfg, max_new_tokens=new)
+        else:
+            tokens, _ = tgen._generate_eager(params, prompt, cfg,
+                                             max_new_tokens=new)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        graphs = (tgen.graph_captures - captures,
+                  tgen.graph_replays - replays)
+        want = (1, new - 1) if path == "graph" else (0, 0)
+        check(launches == (cfg.n_layers, 0, 0, 0),
+              f"{tag} {path}: kernels launched {launches} times (fwd, dkv, "
+              f"dq, delta), want ({cfg.n_layers}, 0, 0, 0)")
+        check(graphs == want, f"{tag} {path}: graph captures and replays "
+              f"{graphs}, want {want}")
+        check(tokens.shape == (batch, new),
+              f"tokens shape {tuple(tokens.shape)}")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              "token out of range")
+        turns.append(dict(path=path, tokens=tokens, seconds=seconds,
+                          tokens_per_s=batch * new / seconds,
+                          capture_s=tgen.last_capture_s if path == "graph"
+                          else None, launches=launches, graphs=graphs))
+    graph, eager = turns[0], turns[1]
+    same = (graph["tokens"] == eager["tokens"]).all(0)
+    agree = int(same.long().cumprod(0).sum())
+    check(torch.equal(turns[2]["tokens"], graph["tokens"]),
+          f"{tag}: two graph runs gave different tokens")
+    check(agree >= SERVE_HELD, f"{tag}: the graph's tokens equal the eager "
+          f"loop's over {agree} leading columns, want {SERVE_HELD}")
+    for t in turns:
+        capture = "" if t["capture_s"] is None else \
+            f", capture {t['capture_s'] * 1e3:.1f} ms"
+        print(f"[{tag}] generate, {t['path']} path: {t['tokens_per_s']:.1f} "
+              f"tokens/s ({t['seconds']:.3f} s for {batch}x{new} greedy "
+              f"tokens; flash launches={t['launches'][0]}, graph captures "
+              f"and replays {t['graphs']}{capture}) on {card}", flush=True)
+    print(f"[{tag}] graph tokens equal the eager loop's over {agree} of "
+          f"{new} leading columns (held: {SERVE_HELD}); graph/eager tokens/s "
+          f"{graph['tokens_per_s'] / eager['tokens_per_s']:.2f}", flush=True)
+    kw = dict(max_new_tokens=SAMPLED_NEW, temperature=0.8, top_k=50,
+              seed=seed)
+    sampled = tgen.generate(params, prompt, cfg, **kw)
+    sampled_eager, _ = tgen._generate_eager(params, prompt, cfg, **kw)
+    check(torch.equal(sampled, sampled_eager), f"{tag}: sampled tokens of "
+          f"the graph differ from the eager loop's for the same seed")
+    print(f"[{tag}] sampled (temperature 0.8, top_k 50, seed {seed}): "
+          f"{SAMPLED_NEW} tokens of the graph equal the eager loop's",
+          flush=True)
 
     plain_cfg = dataclasses.replace(cfg, attn_impl="reference")
     with _recorded_routing() as kernel_routes:
@@ -1027,7 +1117,7 @@ def phase_serving(card, cfg, tag, seed):
         plain = _prefill_logits(params, prompt, plain_cfg, prompt_len + new)
     check(torch.isfinite(kernel).all().item(), "non-finite prefill logits")
     row_diff = (kernel - plain).abs().amax(-1)
-    agree = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
+    first = (kernel.argmax(-1) == plain.argmax(-1)).float().mean().item()
     checked = torch.ones(batch, dtype=torch.bool)
     flips = ""
     if cfg.num_experts:
@@ -1047,14 +1137,20 @@ def phase_serving(card, cfg, tag, seed):
     print(f"[{tag}] prefill logits kernel vs plain path: max_abs_diff="
           f"{diff:.4e} (tol {LOGIT_TOL_BF16}; all rows "
           f"{row_diff.max().item():.4e}), logit std="
-          f"{plain.std().item():.3f}, first-token agreement={agree:.3f}"
+          f"{plain.std().item():.3f}, first-token agreement={first:.3f}"
           f"{flips}", flush=True)
     check(diff <= LOGIT_TOL_BF16, "prefill logits: kernel path disagrees")
     breakdown = _serving_breakdown(params, prompt, cfg, prompt_len + new, tag)
     del params
     torch.cuda.empty_cache()
-    return dict(launches=launches[0], tokens_per_s=tokens_per_s,
-                **breakdown)
+    return dict(launches=graph["launches"][0],
+                tokens_per_s=graph["tokens_per_s"],
+                eager_tokens_per_s=eager["tokens_per_s"],
+                graph_turns_tokens_per_s=[turns[0]["tokens_per_s"],
+                                          turns[2]["tokens_per_s"]],
+                capture_s=graph["capture_s"],
+                graph_replays_per_generate=graph["graphs"][1],
+                tokens_equal_columns=agree, **breakdown)
 
 
 def _device_kernels(prof):
@@ -1065,18 +1161,37 @@ def _device_kernels(prof):
             and not getattr(e, "is_user_annotation", False)]
 
 
+def _decode_window(run, steps):
+    """(ms a step by the host clock, the profiler's kernels, the profiled
+    window's wall µs) of ``run(steps)`` after ``run(2)``; ``run`` ends in a
+    synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    run(2)
+    t0 = time.perf_counter()
+    run(steps)
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return step_ms, _device_kernels(prof), wall_us
+
+
 def _serving_breakdown(params, prompt, cfg, max_len, tag, steps=16):
     """Where a request's time goes: prefill against decode steps (host clock
-    around work that ends in a synchronize), and the card's busy share over
-    decode steps (torch.profiler's kernel intervals over the wall time).
-    With experts, also the MoE layer's device time at the decode shape,
-    timed alone (its routing, then its products) against a step's."""
-    from torch.profiler import ProfilerActivity, profile
-
+    around work that ends in a synchronize), and for both decode paths (the
+    graph's replays, eager ``decode_step`` calls) ms a step, the card's busy
+    share (torch.profiler's kernel intervals over the wall time) and its
+    kernels a step. With experts, also the MoE layer's device time at the
+    decode shape, timed alone (its routing, then its products) against an
+    eager step's."""
     from ray_tpu_torch.models import decode_step, prefill
-    from ray_tpu_torch.models.generate import _cast_params
+    tgen = _tgen()
+    icfg = tgen._inference_cfg(cfg)
+    card = torch.device("cuda")
     with torch.inference_mode():
-        p16 = _cast_params(params, cfg.dtype)
+        p16 = tgen._cast_params(params, cfg.dtype)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = prefill(p16, prompt, cfg, max_len)
@@ -1085,7 +1200,7 @@ def _serving_breakdown(params, prompt, cfg, max_len, tag, steps=16):
         prefill_ms = (time.perf_counter() - t0) * 1e3
         pos = prompt.shape[1]
 
-        def run(n):
+        def eager(n):
             nonlocal token, cache, pos
             for _ in range(n):
                 logits, cache = decode_step(p16, token, pos, cache, cfg)
@@ -1093,41 +1208,59 @@ def _serving_breakdown(params, prompt, cfg, max_len, tag, steps=16):
                 pos += 1
             torch.cuda.synchronize()
 
-        run(2)
-        t0 = time.perf_counter()
-        run(steps)
-        step_ms = (time.perf_counter() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(steps)
-            wall_us = (time.perf_counter() - t0) * 1e6
+        windows = {"eager": _decode_window(eager, steps)}
+        del cache
+        state, gen = tgen._start(p16, prompt, icfg, max_len - pos, 0.0,
+                                 None, 0, card)
+        graph = tgen._decode_graph(
+            lambda: tgen._step(p16, icfg, state, gen, 0.0, None), state,
+            gen, card)
+
+        def replay(n):
+            for _ in range(n):
+                graph.replay()
+            torch.cuda.synchronize()
+
+        windows["graph"] = _decode_window(replay, steps)
+        del graph, state
         moe = _moe_decode_ms(p16, prompt.shape[0], cfg) \
             if cfg.num_experts else None
-    kernels = _device_kernels(prof)
+    out = dict(prefill_ms=prefill_ms)
+    b = prompt.shape[0]
     print(f"[{tag}] prefill (time to first token) {prefill_ms:.2f} ms "
-          f"(batch {prompt.shape[0]} x {prompt.shape[1]}), decode "
-          f"{step_ms:.3f} ms/step ({prompt.shape[0] / step_ms * 1e3:.1f} "
-          f"tokens/s in steady decode)", flush=True)
-    out = dict(prefill_ms=prefill_ms, decode_step_ms=step_ms)
-    if not kernels:
-        print(f"[{tag}] decode device busy share: not measured (the "
-              f"profiler recorded no device events)", flush=True)
-        return out
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    out.update(busy_share=busy_us / wall_us, kernels_per_step=len(kernels)
-               / steps, decode_device_ms=busy_us / steps / 1e3)
-    print(f"[{tag}] decode device busy share {busy_us / wall_us:.3f} over "
-          f"{steps} steps ({len(kernels) / steps:.0f} kernels/step, "
-          f"{busy_us / steps / 1e3:.3f} ms device time/step)", flush=True)
-    for name, us in top:
-        print(f"[{tag}]   {us / steps / 1e3:.4f} ms/step  {name[:90]}")
-    if moe is not None:
-        step_dev = busy_us / steps / 1e3
+          f"(batch {b} x {prompt.shape[1]})", flush=True)
+    for path in ("graph", "eager"):
+        step_ms, kernels, wall_us = windows[path]
+        key = "" if path == "graph" else "eager_"
+        out[key + "decode_step_ms"] = step_ms
+        host = "1 graph replay" if path == "graph" else "eager launches"
+        print(f"[{tag}] decode, {path} path: {step_ms:.3f} ms/step "
+              f"({b / step_ms * 1e3:.1f} tokens/s in steady decode; "
+              f"{host})", flush=True)
+        if not kernels:
+            print(f"[{tag}] decode, {path} path: busy share not measured "
+                  f"(the profiler recorded no device events)", flush=True)
+            continue
+        busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+        out.update({key + "busy_share": busy_us / wall_us,
+                    key + "kernels_per_step": len(kernels) / steps,
+                    key + "decode_device_ms": busy_us / steps / 1e3})
+        print(f"[{tag}] decode, {path} path: device busy share "
+              f"{busy_us / wall_us:.3f} over {steps} steps "
+              f"({len(kernels) / steps:.0f} device kernels/step, "
+              f"{busy_us / steps / 1e3:.3f} ms device time/step)",
+              flush=True)
+        if path == "eager":
+            by_name = {}
+            for e in kernels:
+                by_name[e.name] = by_name.get(e.name, 0.0) + \
+                    e.time_range.elapsed_us()
+            for name, us in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1])[:5]:
+                print(f"[{tag}]   {us / steps / 1e3:.4f} ms/step  "
+                      f"{name[:90]}")
+    if moe is not None and "eager_decode_device_ms" in out:
+        step_dev = out["eager_decode_device_ms"]
         layer_ms, route_ms = moe
         out.update(moe_ms=layer_ms * cfg.n_layers,
                    moe_share=layer_ms * cfg.n_layers / step_dev,
@@ -1135,11 +1268,11 @@ def _serving_breakdown(params, prompt, cfg, max_len, tag, steps=16):
                    / step_dev)
         print(f"[{tag}] MoE layer at the decode shape, timed alone (device "
               f"time), x {cfg.n_layers} layers: {layer_ms * cfg.n_layers:.3f}"
-              f" ms/step = {out['moe_share']:.3f} of a decode step's device "
-              f"time; of which the routing {route_ms * cfg.n_layers:.3f} ms "
-              f"and the dispatch, expert and combine einsums "
-              f"{(layer_ms - route_ms) * cfg.n_layers:.3f} ms = "
-              f"{out['moe_products_share']:.3f}", flush=True)
+              f" ms/step = {out['moe_share']:.3f} of an eager decode step's "
+              f"device time; of which the routing "
+              f"{route_ms * cfg.n_layers:.3f} ms and the dispatch, expert "
+              f"and combine einsums {(layer_ms - route_ms) * cfg.n_layers:.3f}"
+              f" ms = {out['moe_products_share']:.3f}", flush=True)
     return out
 
 
@@ -1185,6 +1318,26 @@ def phase_small_reference():
           f"(tol {LOGIT_TOL_F32})", flush=True)
     check(diff <= LOGIT_TOL_F32 and kdiff <= LOGIT_TOL_F32,
           "card disagrees with the CPU reference")
+    # 16 tokens: the card's decode graph against the CPU's eager loop
+    tgen = _tgen()
+    new = 16
+    want, want_cache = tgen._generate_eager(params, prompt, cfg,
+                                            max_new_tokens=new, device="cpu")
+    replays = tgen.graph_replays
+    with torch.inference_mode():
+        got, got_cache = tgen._generate_loop(
+            card, prompt, tgen._inference_cfg(cfg), new, 0.0, None, 0,
+            torch.device("cuda"))
+    replayed = tgen.graph_replays - replays
+    cdiff = max((got_cache[n].cpu() - want_cache[n]).abs().max().item()
+                for n in ("k", "v"))
+    print(f"[reference] {new} greedy tokens, the card's graph ({replayed} "
+          f"replays) vs the CPU's eager loop: tokens equal "
+          f"{torch.equal(got.cpu(), want)}, cache max_abs_diff={cdiff:.3e} "
+          f"(tol {LOGIT_TOL_F32})", flush=True)
+    check(replayed == new - 1 and torch.equal(got.cpu(), want)
+          and cdiff <= LOGIT_TOL_F32,
+          "the card's decode graph disagrees with the CPU's eager loop")
 
 
 def phase_long_prefill():
@@ -5435,16 +5588,42 @@ def _direct_mismatches(params, cfg, new, batches, answers, direct=None):
 
 
 def _until_200(url, prompt, limit_s):
-    """POST ``prompt`` until it answers 200: (body, seconds, failures)."""
+    """POST ``prompt`` until it answers 200: (body, seconds, failures).
+    At the limit, print the last answer's status and body, the serve
+    controller's status and the conductor's actor and node tables, and
+    return a body of None."""
     t0 = time.perf_counter()
-    failures = 0
+    failures, last = 0, None
     while time.perf_counter() - t0 < limit_s:
         code, body, _ = _post_json(url, {"prompt": prompt}, timeout=600)
         if code == 200:
             return body, time.perf_counter() - t0, failures
-        failures += 1
+        failures, last = failures + 1, (code, body)
         time.sleep(0.25)
+    _print_serve_state("serve-cluster", f"no 200 in {limit_s} s "
+                       f"({failures} answers, the last {last!r:.300})")
     return None, time.perf_counter() - t0, failures
+
+
+def _print_serve_state(tag, why):
+    """What the cluster holds when a replica does not come back: the
+    controller's status and the conductor's actors and nodes (each part
+    that cannot be read is printed as its error)."""
+    from ray_tpu_torch import state
+
+    def read(fn):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 - printing what can be read
+            return f"unreadable: {type(e).__name__}: {e}"
+
+    print(f"[{tag}] {why}; serve.status() {read(serve.status)}", flush=True)
+    actors = read(state.list_actors)
+    for a in actors if isinstance(actors, list) else [actors]:
+        print(f"[{tag}]   actor {a}", flush=True)
+    nodes = read(state.list_nodes)
+    for n in nodes if isinstance(nodes, list) else [nodes]:
+        print(f"[{tag}]   node {n}", flush=True)
 
 
 def phase_serve_cluster(card, http_run, cgraph_run):

@@ -7,9 +7,21 @@
   kernel on the card) and pads each layer's rotated K/V to ``max_len``.
 - Decode steps attend over the whole cache with a position mask, in plain
   PyTorch: the JAX package has no kernel there either.
+- The position is a 0-dim int64 tensor on the cache's device, as JAX's
+  traced ``pos`` is: the cache write is an ``index_copy_`` at it (JAX's
+  ``lax.dynamic_update_slice``), and no operation of a step reads a device
+  value on the host.
 - Unlike the JAX version, ``decode_step`` writes the new K/V into the cache
   in place and returns the same tensors: JAX's arrays are immutable, here an
   update in place saves a copy of the cache per token.
+- The JAX ``generate`` runs its decode loop as one ``lax.scan`` inside jit.
+  Here a decode step (every layer, the head and the sampling, advancing the
+  position) is one function over static tensors. On the card ``generate``
+  captures it once a call as a CUDA graph and replays the graph for each
+  token: one launch a token, nothing read back until it returns. On the CPU
+  the same function runs eagerly. ``_generate_eager`` keeps the loop of one
+  eager ``decode_step`` a token, the plain version the card's checks hold
+  the graph to.
 - MoE models route without dropping at inference (``_inference_cfg``):
   a decode step at S 1 never drops a token, so the prefill must not either,
   or cached and uncached forward passes diverge.
@@ -20,6 +32,8 @@
 from __future__ import annotations
 
 import dataclasses
+import threading
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -29,6 +43,17 @@ from ray_tpu_torch.models.transformer import (TransformerConfig, _head,
                                               _layer_apply, _mlp, _rmsnorm,
                                               _rope, check_device,
                                               unstack_layers)
+
+# The card's decode graphs: captures made, replays launched (one a decode
+# step), and the seconds of the last capture (its warm-up step included).
+graph_captures = 0
+graph_replays = 0
+last_capture_s = 0.0
+
+# One capture stream a thread and device: concurrent captures need streams
+# of their own, and cuBLAS keeps a workspace for each stream it meets, so a
+# fixed stream keeps memory flat over calls.
+_streams = threading.local()
 
 
 def _inference_cfg(cfg: TransformerConfig) -> TransformerConfig:
@@ -57,8 +82,9 @@ def _project_kv(cfg: TransformerConfig, layer, h, positions):
     return _rope(k, positions, cfg.rope_theta), v
 
 
-def _cached_attention(cfg: TransformerConfig, q, k_cache, v_cache, pos: int):
-    """q [B, 1, H, D] against cache [B, T, KVH, D], positions <= pos."""
+def _cached_attention(cfg: TransformerConfig, q, k_cache, v_cache, pos):
+    """q [B, 1, H, D] against cache [B, T, KVH, D], positions <= pos (a
+    0-dim tensor)."""
     b, _, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, 1, kvh, h // kvh, d)
@@ -74,18 +100,17 @@ def _cached_attention(cfg: TransformerConfig, q, k_cache, v_cache, pos: int):
     return o.reshape(b, 1, h, d)
 
 
-def _decode_layer(cfg: TransformerConfig, layer, k_cache, v_cache, x,
-                  pos: int):
+def _decode_layer(cfg: TransformerConfig, layer, k_cache, v_cache, x, pos):
     """One layer, one token: x [B, 1, E]; k/v_cache [B, T, KVH, D], updated
-    in place at ``pos``."""
+    in place at ``pos`` (a 0-dim int64 tensor)."""
     dt = cfg.dtype
     h = _rmsnorm(x, layer["ln1"])
-    positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    positions = pos.view(1, 1).expand(x.shape[0], 1)
     q = torch.einsum("bse,ehd->bshd", h, layer["attn"]["wq"].to(dt))
     q = _rope(q, positions, cfg.rope_theta)
     k_new, v_new = _project_kv(cfg, layer, h, positions)
-    k_cache[:, pos] = k_new[:, 0]
-    v_cache[:, pos] = v_new[:, 0]
+    k_cache.index_copy_(1, pos.view(1), k_new)
+    v_cache.index_copy_(1, pos.view(1), v_new)
     o = _cached_attention(cfg, q, k_cache, v_cache, pos)
     o = torch.einsum("bshd,hde->bse", o, layer["attn"]["wo"].to(dt))
     x = x + o
@@ -115,13 +140,18 @@ def prefill(params, tokens, cfg: TransformerConfig, max_len: int,
     return logits[:, 0], cache
 
 
-def decode_step(params, token, pos: int, cache, cfg: TransformerConfig,
+def decode_step(params, token, pos, cache, cfg: TransformerConfig,
                 device=None):
-    """One token for the whole batch: token [B] int, pos an int.
-    -> (logits [B, vocab], cache). The cache is updated in place."""
+    """One token for the whole batch: token [B] int; pos an int or a 0-dim
+    integer tensor on the device. -> (logits [B, vocab], cache). The cache
+    is updated in place."""
     dev = resolve_device(device)
     check_device(params, dev)
     cfg = _inference_cfg(cfg)
+    if isinstance(pos, torch.Tensor):
+        pos = pos.to(device=dev, dtype=torch.int64)
+    else:
+        pos = torch.full((), pos, dtype=torch.int64, device=dev)
     x = params["embed"].to(cfg.dtype)[token.to(dev)][:, None, :]  # [B,1,E]
     for i, layer in enumerate(unstack_layers(params)):
         x = _decode_layer(cfg, layer, cache["k"][i], cache["v"][i], x, pos)
@@ -150,6 +180,117 @@ def _cast_params(params, dtype):
     return params.to(dtype)
 
 
+def _start(params, prompt, cfg: TransformerConfig, max_new_tokens: int,
+           temperature: float, top_k: Optional[int], seed: int, dev):
+    """Prefill and the first token: -> (the decode state, the generator).
+    The state holds the static tensors a decode step reads and writes:
+    ``token`` [B], ``pos`` (0-dim), ``col`` [1] (out's next column), the
+    cache and ``out`` [B, max_new_tokens] with the first token in column
+    0. ``params`` are cast already, ``cfg`` is the inference config."""
+    b, s = prompt.shape
+    gen = None
+    if temperature != 0.0:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+    logits, cache = prefill(params, prompt, cfg, s + max_new_tokens,
+                            device=dev)
+    token = _sample(logits, gen, temperature, top_k)
+    out = torch.zeros((b, max_new_tokens), dtype=torch.int64, device=dev)
+    out[:, 0] = token
+    state = {"token": token, "cache": cache, "out": out,
+             "pos": torch.full((), s, dtype=torch.int64, device=dev),
+             "col": torch.ones(1, dtype=torch.int64, device=dev)}
+    return state, gen
+
+
+def _step(params, cfg: TransformerConfig, state, gen, temperature: float,
+          top_k: Optional[int]) -> None:
+    """One decode step over ``state``, on the device alone: the next token
+    goes into ``token`` and ``out``'s column ``col``, then ``pos`` and
+    ``col`` advance. The function the card's graph captures."""
+    logits, _ = decode_step(params, state["token"], state["pos"],
+                            state["cache"], cfg, device=state["pos"].device)
+    token = _sample(logits, gen, temperature, top_k)
+    state["out"].index_copy_(1, state["col"], token[:, None])
+    state["token"].copy_(token)
+    state["pos"].add_(1)
+    state["col"].add_(1)
+
+
+def _capture_stream(dev) -> torch.cuda.Stream:
+    by_device = getattr(_streams, "by_device", None)
+    if by_device is None:
+        by_device = _streams.by_device = {}
+    index = dev.index if dev.index is not None \
+        else torch.cuda.current_device()
+    if index not in by_device:
+        by_device[index] = torch.cuda.Stream(device=index)
+    return by_device[index]
+
+
+def _decode_graph(step, state, gen, dev) -> torch.cuda.CUDAGraph:
+    """Capture ``step`` (a call of ``_step`` over ``state``) as a CUDA graph.
+
+    One warm-up step runs first on the capture stream (the lazy set-up of
+    cuBLAS and of the kernels must not happen inside a capture); the state
+    and the generator are then put back, so the graph's first replay is the
+    first decode step. The capture is thread-local: serve calls this from
+    a thread while other threads of the process run CUDA work. A graph
+    registers the sampling generator, so each replay draws as the eager
+    step would. A failed capture raises."""
+    global graph_captures, last_capture_s
+    t0 = time.perf_counter()
+    current = torch.cuda.current_stream(dev)
+    stream = _capture_stream(dev)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        token = state["token"].clone()
+        pos = state["pos"].clone()
+        rng = gen.get_state() if gen is not None else None
+        step()
+        state["token"].copy_(token)
+        state["pos"].copy_(pos)
+        state["col"].fill_(1)
+        if gen is not None:
+            gen.set_state(rng)
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    current.wait_stream(stream)
+    graph_captures += 1
+    last_capture_s = time.perf_counter() - t0
+    return graph
+
+
+def _generate_loop(params, prompt, cfg: TransformerConfig,
+                   max_new_tokens: int, temperature: float,
+                   top_k: Optional[int], seed: int, dev):
+    """generate's loop: -> (tokens [B, max_new_tokens], cache). On a CUDA
+    device every decode step is a replay of one captured graph; on the CPU
+    the same step function runs eagerly."""
+    global graph_replays
+    state, gen = _start(params, prompt, cfg, max_new_tokens, temperature,
+                        top_k, seed, dev)
+
+    def step():
+        _step(params, cfg, state, gen, temperature, top_k)
+
+    steps = max_new_tokens - 1
+    if dev.type == "cuda" and steps:
+        graph = _decode_graph(step, state, gen, dev)
+        for _ in range(steps):
+            graph.replay()
+        graph_replays += steps
+    else:
+        for _ in range(steps):
+            step()
+    return state["out"], state["cache"]
+
+
 def generate(params, prompt, cfg: TransformerConfig, *,
              max_new_tokens: int, temperature: float = 0.0,
              top_k: Optional[int] = None, seed: int = 0,
@@ -157,12 +298,31 @@ def generate(params, prompt, cfg: TransformerConfig, *,
     """prompt [B, S] int -> generated tokens [B, max_new_tokens] (int64).
 
     The prefill's sampled token comes first, then one token per decode step.
-    Sampling draws from a ``torch.Generator`` seeded with ``seed``: the same
-    seed repeats the same tokens, though not the JAX package's."""
+    On the card the decode steps are replays of one CUDA graph (module
+    docstring). Sampling draws from a ``torch.Generator`` seeded with
+    ``seed``: the same seed repeats the same tokens, though not the JAX
+    package's."""
     dev = resolve_device(device)
     check_device(params, dev)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be at least 1")
+    cfg = _inference_cfg(cfg)
+    with torch.inference_mode():
+        tokens, _ = _generate_loop(_cast_params(params, cfg.dtype), prompt,
+                                   cfg, max_new_tokens, temperature, top_k,
+                                   seed, dev)
+        return tokens
+
+
+def _generate_eager(params, prompt, cfg: TransformerConfig, *,
+                    max_new_tokens: int, temperature: float = 0.0,
+                    top_k: Optional[int] = None, seed: int = 0,
+                    device=None):
+    """The plain version of ``generate``: one eager ``decode_step`` a token,
+    the position a host int. -> (tokens, cache). ``generate`` never runs
+    it; the checks that hold the graph path to it do."""
+    dev = resolve_device(device)
+    check_device(params, dev)
     cfg = _inference_cfg(cfg)
     with torch.inference_mode():
         params = _cast_params(params, cfg.dtype)
@@ -179,4 +339,4 @@ def generate(params, prompt, cfg: TransformerConfig, *,
                                         device=dev)
             token = _sample(logits, gen, temperature, top_k)
             out.append(token)
-        return torch.stack(out, dim=1)
+        return torch.stack(out, dim=1), cache

@@ -41,6 +41,7 @@ def _port_files():
     files.extend(sorted((REPO / "examples_torch").glob("*.py")))
     files.append(REPO / "chip_smoke.py")
     files.append(REPO / "chip_import_probe.py")
+    files.append(REPO / "chip_rehearse.py")
     return files
 
 

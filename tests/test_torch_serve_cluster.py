@@ -880,8 +880,11 @@ def test_ring_events_of_serve_reach_the_processes_that_emit_them(
     with pytest.raises(rt.GetTimeoutError):
         rt.get(held, timeout=0.2)
     # retries in the driver: calls routed to a killed replica that the
-    # handle's routing view still lists (the view is taken just before the
-    # kill, and a view under a second old is not fetched again)
+    # handle's routing view still lists. The view is taken just before the
+    # kill, and the calls go out on it: certifying the death can take
+    # longer than the second a view counts as fresh, and a view fetched
+    # after the controller's next reconcile (every 2 s) no longer lists the
+    # victim, so no call would be retried.
     handle._refresh(force=True)
     victim = handle._replicas[0]
     rt.kill(victim)
@@ -892,6 +895,8 @@ def test_ring_events_of_serve_reach_the_processes_that_emit_them(
             time.sleep(0.05)
         except Exception:
             break
+    handle._ts = time.monotonic()   # the pre-kill view counts as fresh
+    assert victim._rt_actor_id in {r._rt_actor_id for r in handle._replicas}
     refs = [handle.remote(i) for i in range(12)]
     assert rt.get(refs, timeout=TIMEOUT) == [i + 1 for i in range(12)]
     assert any(r._retried for r in refs)
